@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port (rocquantum_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root, with one CUDA device visible:
+
+    python3 chip_profile.py
+
+Two measurements, each printed with the card's name and power limit:
+
+  1. Where the time of one energy request goes: a ring ansatz (8 RY-column
+     + CNOT-ring layers) flushed and read out against a transverse-field
+     Ising Hamiltonian, once in single precision at n = 29 and once under
+     set_precision("df64") at n = 26. After a warm-up request, one request
+     runs under torch.profiler: wall time (host clock, ends in a
+     synchronize), device busy time (the sum of the kernels' durations; one
+     stream, so they do not overlap), the idle share, and the device time
+     by top-level operator.
+  2. How a fused-layer pass's time grows with its gate count: K RY gates
+     per pass (CUDA events over 10 passes), with no pair bits and with
+     three, on the real and the complex carry, for the f32 kernel at
+     n = 29 and the df64 kernel at n = 26, beside a device copy of the same
+     planes.
+
+Needs CUDA; without it, exits non-zero and prints nothing else.
+"""
+
+import collections
+import subprocess
+import sys
+import time
+
+LAYERS = 8
+F32_N = 29
+DF64_N = 26
+SCAN_K = (1, 4, 16, 64)
+REPS = 10
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def request(circ, n, theta, hamiltonian):
+    """One energy request: queue the ansatz, flush, read the energy."""
+    import torch
+    circ.reset()
+    k = 0
+    for _ in range(LAYERS):
+        for q in range(n):
+            circ.ry(float(theta[k]), q)
+            k += 1
+        for q in range(n):
+            circ.cx(q, (q + 1) % n)
+    energy = circ.expval(hamiltonian)
+    torch.cuda.synchronize()
+    return energy
+
+
+def _top_level(evt):
+    while evt.cpu_parent is not None:
+        evt = evt.cpu_parent
+    return evt.name
+
+
+def profile_request(label, rq, n, sim):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    hamiltonian = rq.PauliOperator(
+        {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}) + \
+        rq.PauliOperator({f"X{q}": -0.5 for q in range(n)})
+    theta = np.random.default_rng(100).normal(size=n * LAYERS)
+    circ = rq.Circuit(n, sim)
+    request(circ, n, theta, hamiltonian)      # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request(circ, n, theta, hamiltonian)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_op = collections.Counter()
+    calls = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.self_device_time_total > 0:
+            top = _top_level(e)
+            by_op[top] += e.self_device_time_total
+            calls[top] += 1
+    by_kernel = collections.Counter()
+    for e in kernels:
+        by_kernel[e.name[:70]] += e.time_range.elapsed_us()
+    print(f"[{label}] one request at n={n}, {LAYERS} layers: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, idle "
+          f"share {1 - busy_us / 1e3 / (wall * 1e3):.3f}")
+    for name, us in by_op.most_common(10):
+        print(f"[{label}]   op {name}: {us / 1e3:.1f} ms "
+              f"({us / max(busy_us, 1):.1%}), {calls[name]} kernel-bearing "
+              f"calls")
+    for name, us in by_kernel.most_common(6):
+        print(f"[{label}]   kernel {name}: {us / 1e3:.1f} ms")
+    del circ
+    torch.cuda.empty_cache()
+
+
+def scan(label, n, layer, make_planes, gates):
+    """ms per pass of ``layer(planes, specs)`` for K gates from
+    ``gates(K, pair_bits, complex)`` (RY on the real carry, random unitaries
+    on the complex one), beside a device copy of the same planes."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(REPS):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / REPS
+
+    for cplx in (False, True):
+        planes = make_planes(cplx)
+        carry = "complex" if cplx else "real"
+        for pair_bits in ((), (11, 17, 25)):
+            row = []
+            for k in (SCAN_K[::2] if cplx else SCAN_K):
+                specs = gates(k, pair_bits, cplx)
+                ms = timed(lambda: layer(planes, specs))
+                row.append(f"K={k} {ms:.3f}")
+            print(f"[{label} scan n={n}] {carry} carry, pairs {pair_bits}: "
+                  + ", ".join(row) + " ms")
+        src = [p for p in planes if p is not None]
+        dst = [torch.empty_like(p) for p in src]
+
+        def copy():
+            for d, p in zip(dst, src):
+                d.copy_(p)
+
+        print(f"[{label} scan n={n}] device copy of the {carry}-carry "
+              f"planes: {timed(copy):.3f} ms")
+        del planes, src, dst
+        torch.cuda.empty_cache()
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is false; this "
+              "script needs one CUDA GPU", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    import rocquantum_tpu_torch as rq
+    from rocquantum_tpu_torch.ops import df64, fused_df64, fused_sv
+
+    dev = torch.device("cuda")
+    print(f"card: {smi_line()}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    sim = rq.Simulator(seed=7, device=dev)
+
+    rq.set_precision("single")
+    profile_request("f32", rq, F32_N, sim)
+    rq.set_precision("df64")
+    profile_request("df64", rq, DF64_N, sim)
+    rq.set_precision("single")
+
+    rng = np.random.default_rng(3)
+
+    def gates(k, pair_bits, cplx):
+        """(specs, complex 2x2s, real flags, pair bits) of K 1q gates over
+        the pass's local set."""
+        local = list(range(fused_sv.W_BITS)) + list(pair_bits)
+        specs = [("U", local[i % len(local)]) for i in range(k)]
+        if cplx:
+            mats = [np.linalg.qr(rng.normal(size=(2, 2))
+                                 + 1j * rng.normal(size=(2, 2)))[0]
+                    for _ in range(k)]
+        else:
+            mats = [np.array([[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]])
+                    for t in rng.normal(size=k)]
+        return specs, mats, [not cplx] * k, pair_bits
+
+    def f32_planes(cplx):
+        re = torch.full((1 << F32_N,), 2.0 ** (-F32_N / 2), device=dev)
+        return re, (torch.zeros_like(re) if cplx else None)
+
+    def f32_layer(planes, g):
+        specs, mats, flags, pair_bits = g
+        gm = np.stack([np.stack([m.real, m.imag], -1)
+                       for m in mats]).astype(np.float32)
+        fused_sv.apply_fused_layer(*planes, specs, gm, pair_bits=pair_bits,
+                                   real_flags=flags)
+
+    def df64_planes(cplx):
+        re = torch.full((1 << DF64_N,), 2.0 ** (-DF64_N / 2),
+                        dtype=torch.float64, device=dev)
+        return df64.state_from_pair_f64(re, torch.zeros_like(re) if cplx
+                                        else None)
+
+    def df64_layer(planes, g):
+        specs, mats, flags, pair_bits = g
+        fused_df64.apply_fused_layer_df64(
+            *planes, specs, fused_df64.pack_gate_mats_df64(mats),
+            pair_bits=pair_bits, real_flags=flags)
+
+    scan("f32", F32_N, f32_layer, f32_planes, gates)
+    scan("df64", DF64_N, df64_layer, df64_planes, gates)
+    print(f"card: {smi_line()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,9 +17,22 @@ Phases:
      3 energy requests (transverse-field Ising Hamiltonian), held against
      the same requests run with the plain layer function; QFT of a basis
      state at n = 26 against its closed form; GHZ at n = 29, sampled;
-  5. times: kernel and plain ms per pass, passes per layer, gates/s.
+  5. times: kernel and plain ms per pass, passes per layer, gates/s;
+  6. the df64 kernel (csrc/fused_df64.cu) against its plain-torch version
+     on the card: seeded random passes at n = 22 over every gate kind,
+     {no pair bits, one, three}, {real carry, complex carry}, then every
+     pass of one ansatz layer at n = 26 (the df64 main path's shapes),
+     timed;
+  7. the double-precision slice: set_precision("df64"), Circuit(26) with
+     8 RY-column + CNOT-ring layers answering 3 TFIM energy requests, held
+     against one request run with the plain df64 layer function and one
+     under set_precision("double") (exact complex128 per op); QFT of a
+     basis state at n = 26 in df64 against its closed form; times.
 
-Prints a kernels JSON line, the nvidia-smi line and, last, the
+Both kernels are built at the start, one nvcc per source, in parallel.
+Each main path (phases 4 and 7) runs with every launch count set to 0 just
+before it and read just after. Prints a kernels JSON line (time, plain
+time and bound of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
 no result line); so does a machine without CUDA.
 """
@@ -29,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ANSATZ_N = 29
 ANSATZ_LAYERS = 8
@@ -41,6 +55,17 @@ KERNEL_TOL = 1e-5     # max abs amplitude error, kernel vs plain (f32)
 ENERGY_RTOL = 1e-4
 NORM_TOL = 1e-4
 QFT_ATOL = 2e-6
+DF64_N = 26           # the JAX package's fp64/df64 width (bench.py FP64_N)
+DF64_KERNEL_TOL = 1e-13   # promoted f64, kernel vs plain, normalized state
+DF64_ENERGY_RTOL = 1e-12  # df64 kernel path vs plain df64 layers
+DOUBLE_ENERGY_RTOL = 1e-11  # df64 vs the exact complex128 engine
+DF64_NORM_TOL = 1e-12
+DF64_QFT_ATOL = 1e-13
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and FP32 outside the
+# tensor cores; a bound is the larger of bytes / HBM and operations / FP32
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def check(ok, what):
@@ -58,7 +83,8 @@ def smi_line():
 
 def random_specs(rng, n, w, pair_bits, k, real):
     """k random gate specs legal for a pass with local set
-    {0..w-1} | pair_bits: every kind, free controls and free D2 bits."""
+    {0..w-1} | pair_bits: every kind, free controls and free D2 bits; the
+    matrices as a list of complex128 2x2s."""
     import numpy as np
 
     local = list(range(w)) + list(pair_bits)
@@ -85,8 +111,56 @@ def random_specs(rng, n, w, pair_bits, k, real):
             m, _ = np.linalg.qr(z)
             if kind == "D2":
                 m = np.exp(1j * rng.uniform(0, 2 * np.pi, (2, 2)))
-        mats.append(np.stack([m.real, m.imag], -1).astype(np.float32))
-    return specs, np.stack(mats)
+        mats.append(np.asarray(m, np.complex128))
+    return specs, mats
+
+
+def pack_f32(mats):
+    """complex 2x2s -> the f32 kernel's (K, 2, 2, 2) re/im table."""
+    import numpy as np
+    return np.stack([np.stack([m.real, m.imag], -1)
+                     for m in mats]).astype(np.float32)
+
+
+def gate_ops(kind, real_mat, complex_state, df):
+    """FP32 operations per amplitude of the state for one gate of a pass
+    (an FMA counts two). A product is 1 operation in f32 and a df_mul 10
+    (two_prod 3, cross terms 3, sums 4); a sum is 1 and a df_add 20 (two
+    two_sums 12, two quick_two_sums 6, 2 adds). A 2x2 row costs two
+    products and a sum per output component, a diagonal one product; a
+    complex product is two real products and a sum per component. CU acts
+    on the half of the amplitudes where its control is 1."""
+    if kind == "CNOT":
+        return 0.0
+    mul, add = (10, 20) if df else (1, 1)
+    cmul = 2 * mul + add             # one component of a complex product
+    if kind == "D2":
+        per = mul if not complex_state else 2 * mul if real_mat else 2 * cmul
+    elif not complex_state:
+        per = 2 * mul + add
+    elif real_mat:
+        per = 2 * (2 * mul + add)
+    else:
+        per = 2 * (2 * cmul + add)
+    return per * (0.5 if kind == "CU" else 1.0)
+
+
+def bound_ms(n, passes, planes, complex_state, df):
+    """(mean least time per pass in ms, "bytes" or "operations") for
+    passes ``[(specs, real_flags), ...]`` over ``planes`` float32 planes
+    of 2^n amplitudes: each plane read once and written once, against the
+    operations of :func:`gate_ops`. ``bound_by`` names the larger of the
+    two sums over the passes."""
+    byte_s = op_s = total = 0.0
+    for specs, flags in passes:
+        b = (1 << n) * 4 * planes * 2 / HBM_BYTES_PER_S
+        o = (1 << n) * sum(gate_ops(sp[0], fl, complex_state, df)
+                           for sp, fl in zip(specs, flags)) / FP32_OPS_PER_S
+        byte_s += b
+        op_s += o
+        total += max(b, o)
+    return (total * 1e3 / len(passes),
+            "operations" if op_s > byte_s else "bytes")
 
 
 def max_err(a, b):
@@ -96,14 +170,33 @@ def max_err(a, b):
 
 
 @contextlib.contextmanager
-def plain_layers(fused_sv):
+def plain_layers(module, name, plain):
     """Route the slice's passes through the plain-torch layer function."""
-    kernel_fn = fused_sv.apply_fused_layer
-    fused_sv.apply_fused_layer = fused_sv.apply_fused_layer_reference
+    kernel_fn = getattr(module, name)
+    setattr(module, name, plain)
     try:
         yield
     finally:
-        fused_sv.apply_fused_layer = kernel_fn
+        setattr(module, name, kernel_fn)
+
+
+def time_turns(run_kernel, run_plain, kernel_reps):
+    """ms per pass, CUDA events, in turns: plain, kernel, kernel, plain."""
+    import torch
+
+    def timed(fn, reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        count = fn(1)  # warm-up
+        torch.cuda.synchronize()
+        start.record()
+        count = fn(reps)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / count
+
+    return (timed(run_plain, 1), timed(run_kernel, kernel_reps),
+            timed(run_kernel, kernel_reps), timed(run_plain, 1))
 
 
 def main():
@@ -120,8 +213,8 @@ def main():
     from rocquantum_tpu_torch.models import (ghz_ir,
                                              hardware_efficient_ansatz_ir,
                                              qft_ir)
-    from rocquantum_tpu_torch.ops import _build, _native_planner, fused_sv
-    from rocquantum_tpu_torch.ops import pairsim
+    from rocquantum_tpu_torch.ops import (_build, _native_planner, df64,
+                                          fused_df64, fused_sv, pairsim)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -135,13 +228,17 @@ def main():
           f"{torch.cuda.device_count()}")
     print(f"planner: {_native_planner.planner_name()}")
 
-    # ---- 2. build -------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    fused_sv.build()
-    print(f"build: fused_sv.cu in {time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOGS.get("fused_sv", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(m.build) for m in (fused_sv, fused_df64)]:
+            job.result()
+    print(f"build: fused_sv.cu and fused_df64.cu in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("fused_sv", "fused_df64"):
+        for line in _build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     rng = np.random.default_rng(2026)
@@ -152,8 +249,9 @@ def main():
     w = fused_sv.window_bits(n)
     for pair_bits in ((), (15,), (11, 17, 21)):
         for mode in ("real", "complex", "zero"):
-            specs, gm = random_specs(rng, n, w, pair_bits, 48,
-                                     real=mode != "complex")
+            specs, mats = random_specs(rng, n, w, pair_bits, 48,
+                                       real=mode != "complex")
+            gm = pack_f32(mats)
             flags = [mode != "complex"] * len(specs)
             if mode == "zero":
                 re = im = None
@@ -259,10 +357,12 @@ def main():
         check(circ.state[1] is None, "ansatz state stays real")
         return energy, norm, t_flush
 
-    fused_sv.LAUNCHES = 0
+    fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
     answers = [answer(theta) for theta in requests]
     launches = fused_sv.LAUNCHES
-    with plain_layers(fused_sv):
+    check(fused_df64.LAUNCHES == 0, "the f32 slice launched no df64 pass")
+    with plain_layers(fused_sv, "apply_fused_layer",
+                      fused_sv.apply_fused_layer_reference):
         plain_answers = [answer(theta) for theta in requests]
     check(fused_sv.LAUNCHES == launches, "plain run launched no kernel")
     check(launches > 0, "the slice launched the fused kernel")
@@ -295,6 +395,7 @@ def main():
     qft_err = float(np.abs(psi - expected).max())
     print(f"QFT n={n} of |{x}>: max abs err vs closed form {qft_err:.3e}")
     check(qft_err <= QFT_ATOL, f"QFT error {qft_err}")
+    qft_f32_err = qft_err
     del circ, psi, expected, k, phase
     torch.cuda.empty_cache()
 
@@ -327,6 +428,15 @@ def main():
     print(f"ansatz: {gates} gates per request, best flush "
           f"{best * 1e3:.2f} ms = {gates / best:.1f} gates/s")
     print(f"launches in the main-path run: {launches}")
+    f32_bound, f32_bound_by = bound_ms(
+        n, [(specs, fl) for specs, _, _, fl in passes], 1,
+        complex_state=False, df=False)
+    print(f"bound per pass at n={n}, real plane: {f32_bound:.4f} ms "
+          f"({f32_bound_by})")
+
+    df = df64_phases(rq, interpreter, PallasBlock,
+                     hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
+                     fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -337,12 +447,216 @@ def main():
         "max_abs_err": worst,
         "ms": min(kernel_ms, kernel_ms_2),
         "plain_ms": min(plain_ms, plain_ms_2),
+        "bound_ms": f32_bound,
+        "bound_by": f32_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "fused_layer_df64",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/fused_df64.cu",
+        "replaces": "rocquantum_tpu/ops/pallas_df64.py:240",
+        **df,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
+                fused_df64, fused_sv, pairsim, rng, gen, dev, sim,
+                qft_f32_err):
+    """Phases 6 and 7: the df64 kernel against its plain version on the
+    card, then the double-precision slice at n = 26. Returns the df64
+    kernel's numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    t_phases = time.perf_counter()
+
+    def promoted_err(got, want):
+        err = 0.0
+        for a, b in zip(df64.state_to_pair_f64(got),
+                        df64.state_to_pair_f64(want)):
+            if b is not None:
+                err = max(err, float((a - b).abs().max()))
+        return err
+
+    def clone(planes):
+        return tuple(None if p is None else p.clone() for p in planes)
+
+    # ---- 6. df64 kernel vs plain ----------------------------------------
+    worst = 0.0
+    n = RANDOM_N
+    w = fused_sv.window_bits(n)
+    for pair_bits in ((), (15,), (11, 17, 21)):
+        for mode in ("real", "complex"):
+            real = mode == "real"
+            specs, mats = random_specs(rng, n, w, pair_bits, 48, real=real)
+            gm = fused_df64.pack_gate_mats_df64(mats)
+            flags = [real] * len(specs)
+            v = torch.randn(1 if real else 2, 1 << n, generator=gen,
+                            dtype=torch.float64, device=dev)
+            v /= torch.linalg.vector_norm(v)
+            planes = df64.state_from_pair_f64(v[0], None if real else v[1])
+            want = fused_df64.apply_fused_layer_df64_reference(
+                *planes, specs, gm, real_flags=flags)
+            got = fused_df64.apply_fused_layer_df64(
+                *clone(planes), specs, gm, pair_bits=pair_bits,
+                real_flags=flags)
+            torch.cuda.synchronize()
+            err = promoted_err(got, want)
+            worst = max(worst, err)
+            print(f"df64 kernel vs plain n={n} pairs={pair_bits} {mode}: "
+                  f"max abs err {err:.3e}")
+            check(err <= DF64_KERNEL_TOL, f"df64 n={n} {pair_bits} {mode}: "
+                  f"{err}")
+
+    # one ansatz layer at the df64 main path's shape, pass by pass
+    n = DF64_N
+    (block,) = interpreter.plan_items(ansatz_ir(n, 1).ops, n)
+    check(isinstance(block, PallasBlock), "df64 ansatz layer is one block")
+    kinds, supports, gm, flags = interpreter.pallas_block_specs_df64(
+        block, rng.normal(size=n))
+    check(all(flags), "the ansatz layer is real")
+    plan = interpreter._block_plan(n, tuple(kinds), tuple(supports))
+    passes = [(tuple((kinds[i],) + tuple(p)
+                     for i, p in zip(item.gate_idx, item.positions)),
+               gm[list(item.gate_idx)], item.pair_bits,
+               [flags[i] for i in item.gate_idx]) for item in plan]
+    v = torch.randn(1 << n, generator=gen, dtype=torch.float64, device=dev)
+    state = df64.state_from_pair_f64(v / torch.linalg.vector_norm(v), None)
+    del v
+    for specs, g, pb, fl in passes:
+        want = fused_df64.apply_fused_layer_df64_reference(
+            *state, specs, g, real_flags=fl)
+        got = fused_df64.apply_fused_layer_df64(*clone(state), specs, g,
+                                                pair_bits=pb, real_flags=fl)
+        torch.cuda.synchronize()
+        err = promoted_err(got, want)
+        worst = max(worst, err)
+        check(err <= DF64_KERNEL_TOL, f"df64 n={n} pass {pb}: {err}")
+        del want, got
+    print(f"df64 kernel vs plain n={n}: {len(passes)} ansatz-layer passes, "
+          f"max abs err {worst:.3e}")
+
+    def chain(fn):
+        x = [clone(state)]
+
+        def run(reps):
+            for _ in range(reps):
+                for specs, g, pb, fl in passes:
+                    x[0] = fn(*x[0], specs, g, pair_bits=pb, real_flags=fl)
+            return reps * len(passes)
+        return run
+
+    turns = time_turns(chain(fused_df64.apply_fused_layer_df64),
+                       chain(fused_df64.apply_fused_layer_df64_reference),
+                       10)
+    bound, bound_by = bound_ms(n, [(specs, fl) for specs, _, _, fl in passes],
+                               2, complex_state=False, df=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- 7. double-precision slice --------------------------------------
+    zz = {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}
+    hamiltonian = rq.PauliOperator(zz) + rq.PauliOperator(
+        {f"X{q}": -0.5 for q in range(n)})
+    requests = [np.random.default_rng(200 + r).normal(size=n * ANSATZ_LAYERS)
+                for r in range(REQUESTS)]
+
+    def answer(circ, theta, real_carry):
+        circ.reset()
+        k = 0
+        for _ in range(ANSATZ_LAYERS):
+            for q in range(n):
+                circ.ry(float(theta[k]), q)
+                k += 1
+            for q in range(n):
+                circ.cx(q, (q + 1) % n)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        circ.flush()
+        torch.cuda.synchronize()
+        t_flush = time.perf_counter() - t_start
+        check(circ.state[0].dtype == torch.float64, "a float64 state")
+        check((circ.state[1] is None) == real_carry,
+              f"the state is (re, None): {real_carry}")
+        energy = circ.expval(hamiltonian)
+        norm = float(pairsim.norm2_pair(*circ.state))
+        return energy, norm, t_flush
+
+    rq.set_precision("df64")
+    circ = rq.Circuit(n, sim)
+    fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
+    answers = [answer(circ, theta, True) for theta in requests]
+    launches = fused_df64.LAUNCHES
+    check(launches > 0, "the df64 slice launched the df64 kernel")
+    check(fused_sv.LAUNCHES == 0, "the df64 slice launched no f32 pass")
+    with plain_layers(fused_df64, "apply_fused_layer_df64",
+                      fused_df64.apply_fused_layer_df64_reference):
+        plain = answer(circ, requests[0], True)
+    check(fused_df64.LAUNCHES == launches, "plain run launched no kernel")
+    del circ
+    rq.set_precision("double")
+    exact = answer(rq.Circuit(n, sim), requests[0], False)
+    rq.set_precision("df64")
+    torch.cuda.empty_cache()
+    gates = ANSATZ_LAYERS * 2 * n
+    for r, (e, nrm, t) in enumerate(answers):
+        print(f"df64 request {r}: energy {e:.15f}, norm {nrm:.15f}, flush "
+              f"{t * 1e3:.2f} ms = {gates / t:.1f} gates/s")
+        check(np.isfinite(e) and abs(nrm - 1.0) <= DF64_NORM_TOL,
+              f"df64 energy {e}, norm {nrm}")
+    e0 = answers[0][0]
+    for name, (e_ref, _, t_ref), tol in (
+            ("plain df64 layers", plain, DF64_ENERGY_RTOL),
+            ("exact double", exact, DOUBLE_ENERGY_RTOL)):
+        rel = abs(e0 - e_ref) / max(abs(e_ref), 1e-30)
+        print(f"df64 request 0 vs {name}: energy {e_ref:.15f}, rel diff "
+              f"{rel:.3e} (limit {tol:.0e}), flush {t_ref * 1e3:.1f} ms")
+        check(rel <= tol, f"df64 energy {e0} vs {name} {e_ref}")
+
+    # QFT of a basis state in df64 against its closed form
+    x = 0x2A5F3C1 % (1 << n)
+    circ = rq.Circuit(n, sim)
+    for q in range(n):
+        if (x >> q) & 1:
+            circ.x(q)
+    for op in qft_ir(n).ops:
+        circ._enqueue(op.name, op.targets, op.controls, op.params)
+    psi = circ.get_statevector()
+    check(circ.state[1] is not None, "the df64 QFT carries a complex state")
+    k = np.arange(1 << n, dtype=np.int64)
+    phase = ((x * k) % (1 << n)).astype(np.float64) * (2 * np.pi / (1 << n))
+    qft_err = float(np.abs(psi - np.exp(1j * phase) / np.sqrt(1 << n)).max())
+    print(f"QFT n={n} of |{x}> in df64: max abs err vs closed form "
+          f"{qft_err:.3e} (f32 path {qft_f32_err:.3e})")
+    check(qft_err <= DF64_QFT_ATOL, f"df64 QFT error {qft_err}")
+    del circ, psi, k, phase
+    rq.set_precision("single")
+    torch.cuda.empty_cache()
+
+    # ---- df64 times -----------------------------------------------------
+    full = ansatz_ir(n, ANSATZ_LAYERS)
+    total_passes = sum(interpreter.block_pass_count(item, n)
+                       for item in interpreter.plan_items(full.ops, n)
+                       if isinstance(item, PallasBlock))
+    print(f"df64 passes: one layer {len(passes)}, {ANSATZ_LAYERS} layers "
+          f"{total_passes} ({total_passes / ANSATZ_LAYERS:.3f} per layer)")
+    print(f"df64 per pass at n={n}, real carry (ms, kernel/plain in turns): "
+          f"plain {turns[0]:.4f}, kernel {turns[1]:.4f}, kernel "
+          f"{turns[2]:.4f}, plain {turns[3]:.4f}; bound {bound:.4f} "
+          f"({bound_by})")
+    best = min(t for _, _, t in answers)
+    print(f"df64 ansatz: {gates} gates per request, best flush "
+          f"{best * 1e3:.2f} ms = {gates / best:.1f} gates/s")
+    print(f"df64 launches in the main-path run: {launches}")
+    print(f"df64 phases: {time.perf_counter() - t_phases:.1f} s")
+    return {"launches": launches, "max_abs_err": worst,
+            "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 if __name__ == "__main__":

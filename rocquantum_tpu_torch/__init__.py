@@ -1,12 +1,13 @@
-"""rocquantum_tpu_torch — the rocquantum_tpu f32 state-vector Circuit path
-on PyTorch, with a hand-written CUDA fused-layer kernel for NVIDIA Hopper.
+"""rocquantum_tpu_torch — the rocquantum_tpu state-vector Circuit path
+(single, double and double-float precision) on PyTorch, with hand-written
+CUDA fused-layer kernels for NVIDIA Hopper.
 
 The JAX package ``rocquantum_tpu`` beside it is the reference this package
 is tested against; this package imports neither it nor jax.
 """
 
 from . import config
-from .config import set_precision, get_precision  # noqa: F401
+from .config import df64_enabled, get_precision, set_precision  # noqa: F401
 
 from .api import Simulator, Circuit, PauliOperator  # noqa: F401
 from .compiler.ir import CircuitIR, GateOp, ParamRef  # noqa: F401

@@ -1,11 +1,15 @@
 """The rocq programming model on PyTorch: Simulator / Circuit /
 PauliOperator.
 
-Counterpart of ``rocquantum_tpu/api.py`` for an f32 circuit on one device,
+Counterpart of ``rocquantum_tpu/api.py`` for a circuit on one device,
 unsharded and unbatched. ``Circuit`` queues gates and ``flush()`` replays
 the queue through the planned fused-kernel passes (compiler/interpreter.py),
-carrying the state as a float32 pair ``(re, im)`` and as ``(re, None)``
-while the circuit stays real. Mid-circuit ``measure`` reduces on the device,
+carrying the state as a float pair ``(re, im)`` and as ``(re, None)`` while
+the circuit stays real. The precision at the state's creation fixes its
+planes: float32 in single precision, float64 in double. A float64 state
+flushes through the double-float engine (df64 kernel) when
+``config.df64_enabled()``, else through the exact per-op engine, which
+returns the full pair. Mid-circuit ``measure`` reduces on the device,
 draws on the host from the simulator's numpy generator (the same draws as
 the JAX package for the same seed) and collapses on the device; ``sample``
 draws on the device from a seeded ``torch.Generator``.
@@ -18,15 +22,23 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .compiler.interpreter import compile_pair32_ir, init_real, parametrize
+from . import config
+from .compiler.interpreter import (compile_df64_fused_ir, compile_pair32_ir,
+                                   init_real, init_real64, parametrize,
+                                   run_ops_f64)
 from .compiler.ir import CircuitIR, GateOp
 from .compiler.sharded_schedule import elide_swaps, unpermute_ops
 from .ops import pairsim
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The current CUDA device. The port runs on the card unless the caller
+    asks for the CPU (``device="cpu"``); without a CUDA device this
+    raises."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 class Simulator:
@@ -234,10 +246,21 @@ class Circuit(_GateMethods):
     @property
     def state(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The float-pair state ``(re, im)``; ``im`` is None while the
-        circuit is real."""
+        circuit is real. Made at first use in the precision set then: a
+        real float32 plane, a real float64 plane for the double-float
+        engine, else the full float64 pair the exact engine carries."""
         if self._state is None:
-            self._state = (init_real(self.num_qubits, self.device), None)
+            n = self.num_qubits
+            if config.get_precision() == "single":
+                self._state = (init_real(n, self.device), None)
+            else:
+                re = init_real64(n, self.device)
+                self._state = (re, None) if config.df64_enabled() \
+                    else (re, torch.zeros_like(re))
         return self._state
+
+    def _is_f64(self) -> bool:
+        return self.state[0].dtype == torch.float64
 
     def reset(self):
         """Re-initialize to |0...0> (rocsvInitializeState semantics)."""
@@ -255,9 +278,14 @@ class Circuit(_GateMethods):
         (before a full-state readback)."""
         if self._layout == list(range(self.num_qubits)):
             return
-        fn = compile_pair32_ir(CircuitIR(self.num_qubits,
-                                         unpermute_ops(self._layout)))
-        self._state = tuple(fn(self.state, None))
+        ops = unpermute_ops(self._layout)
+        if self._is_f64():
+            # the exact engine, which materializes im, as the JAX package
+            # does for a float64 state
+            self._state = run_ops_f64(*self.state, ops)
+        else:
+            fn = compile_pair32_ir(CircuitIR(self.num_qubits, ops))
+            self._state = tuple(fn(self.state, None))
         self._layout = list(range(self.num_qubits))
 
     # -- queue / flush --------------------------------------------------------
@@ -271,15 +299,26 @@ class Circuit(_GateMethods):
 
     def flush(self):
         """Run the queued gates (reference api.py:74-89): SWAPs become
-        layout relabels, concrete angles become a parameter vector so
-        structurally equal flushes share one cached plan."""
+        layout relabels, concrete angles become a parameter vector (float32
+        on a float32 state, float64 on a float64 one) so structurally equal
+        flushes share one cached plan."""
         if not self._is_dirty or not self._gate_queue:
             return
         ops, values = parametrize(self._gate_queue)
         ops, self._layout = elide_swaps(ops, self._layout)
-        fn = compile_pair32_ir(CircuitIR(self.num_qubits, ops),
-                               fuse=self._fuse, max_fuse=self._max_fuse)
-        self._state = tuple(fn(self.state, np.asarray(values, np.float32)))
+        ir = CircuitIR(self.num_qubits, ops)
+        if not self._is_f64():
+            fn = compile_pair32_ir(ir, fuse=self._fuse,
+                                   max_fuse=self._max_fuse)
+            self._state = tuple(fn(self.state,
+                                   np.asarray(values, np.float32)))
+        elif config.df64_enabled():
+            fn = compile_df64_fused_ir(ir, fuse=self._fuse,
+                                       max_fuse=self._max_fuse)
+            self._state = fn(self.state, np.asarray(values, np.float64))
+        else:
+            self._state = run_ops_f64(*self.state, ops,
+                                      np.asarray(values, np.float64))
         self._gate_queue.clear()
         self._is_dirty = False
 

@@ -12,6 +12,14 @@ The state is a pair of flat ``(2^n,)`` float32 planes ``(re, im)``, and
 (PallasBlocks) go through the fused kernel (ops/fused_sv.py) with no complex
 tensor in between; every other item converts to complex64 locally and runs
 in plain torch (ops/statevec.py), as the JAX package leaves it to XLA.
+
+In double precision the state is a float64 pair, with two engines:
+:func:`compile_df64_fused_ir` (the double-float engine, ``set_precision
+("df64")``) splits it into hi/lo float32 planes at entry, runs the same plan
+with PallasBlocks through the df64 kernel (ops/fused_df64.py) and every
+other item op by op in df64 arithmetic (ops/df64.py), and promotes back to
+float64 at exit; :func:`run_ops_f64` (``set_precision("double")``)
+applies every op exactly on complex128 in plain torch.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import df64 as dfm
+from ..ops import fused_df64
 from ..ops import fused_sv
 from ..ops import gates as _g
 from ..ops import relabel
@@ -177,6 +187,22 @@ def _has_real_matrix(op: GateOp) -> bool:
     return op.name.upper() in _REAL_1Q
 
 
+# Parametrized gates the double-precision engines treat as complex at any
+# angle (the JAX package's float64 row builders, pairsim.gate_rows)
+_COMPLEX_ROWS = {"RX", "RZ", "P", "PHASE", "U3", "RZZ"}
+
+
+def _real_flag(op: GateOp, m: np.ndarray, exact: bool) -> bool:
+    """Whether the kernel may treat ``m``, the op's 2x2 (or D2 values), as
+    real. ``exact`` is the double-precision rule of the JAX package's df64
+    specs: no imaginary part at all, decided on the base gate (RY and the
+    real fixed gates, under a control too); else the single-precision
+    rule, by name or within float32 noise."""
+    if not exact:
+        return _has_real_matrix(op)
+    return _split_op(op)[0] not in _COMPLEX_ROWS and not np.any(np.imag(m))
+
+
 _D2_BASES = set(_DIAG_VECS) | {"RZ", "P", "PHASE"}
 
 
@@ -184,15 +210,13 @@ def _pack(m: np.ndarray) -> np.ndarray:
     return np.stack([np.real(m), np.imag(m)], axis=-1).astype(np.float32)
 
 
-_EYE_PACKED = _pack(np.eye(2))
-
-
-def pallas_block_specs(block: PallasBlock, params):
-    """(kinds, supports, gate_mats, real_flags) for a PallasBlock's ops:
-    kind "U" (dense 1q matrix), "CNOT" (control, target), "CU" (controlled
-    dense 1q) or "D2" — a two-qubit diagonal packed as the 2x2 of diagonal
-    entries d[bit_a, bit_b]. ``gate_mats`` is a host float32 (K, 2, 2, 2)
-    array [k, row, col, re/im]."""
+def _block_matrices(block: PallasBlock, params, exact_real: bool = False):
+    """(kinds, supports, mats, real_flags) for a PallasBlock's ops, with
+    each gate's 2x2 as a host complex128 matrix: kind "U" (dense 1q
+    matrix), "CNOT" (control, target), "CU" (controlled dense 1q) or "D2" —
+    a two-qubit diagonal given as the 2x2 of diagonal entries d[bit_a,
+    bit_b]. ``exact_real`` selects the double-precision realness rule
+    (:func:`_real_flag`)."""
     mats, kinds, supports, real_flags = [], [], [], []
     for op in block.ops:
         base, controls, targets = _split_op(op)
@@ -202,19 +226,19 @@ def pallas_block_specs(block: PallasBlock, params):
                 m = np.conj(m)
             kinds.append("D2")
             supports.append((targets[0], targets[1]))
-            mats.append(_pack(m))
-            real_flags.append(_has_real_matrix(op))
+            mats.append(m)
+            real_flags.append(_real_flag(op, m, exact_real))
         elif base == "X" and len(controls) == 1 and op.matrix is None:
             kinds.append("CNOT")
             supports.append((controls[0], targets[0]))
-            mats.append(_EYE_PACKED)  # placeholder, unused by the CNOT path
+            mats.append(np.eye(2))  # placeholder, unused by the CNOT path
             real_flags.append(True)
         elif (op.matrix is None and len(controls) == 1
               and base in _D2_BASES):
             d = _diag_vector(op, params)
             kinds.append("D2")
             supports.append((controls[0], targets[0]))
-            mats.append(_pack(np.stack([np.ones(2), d])))
+            mats.append(np.stack([np.ones(2), d]))
             real_flags.append(base == "Z")  # CZ is the only real member
         elif (op.matrix is None and not controls and len(targets) == 1
               and base in _D2_BASES):
@@ -222,7 +246,7 @@ def pallas_block_specs(block: PallasBlock, params):
             d = _diag_vector(op, params)
             kinds.append("D2")
             supports.append((targets[0], targets[0]))
-            mats.append(_pack(np.array([[d[0], d[0]], [d[1], d[1]]])))
+            mats.append(np.array([[d[0], d[0]], [d[1], d[1]]]))
             real_flags.append(base == "Z")
         elif op.matrix is None and base == "RZZ" and not controls:
             (theta,) = _resolve_params(op, params)
@@ -231,19 +255,37 @@ def pallas_block_specs(block: PallasBlock, params):
             em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
             kinds.append("D2")
             supports.append((targets[0], targets[1]))
-            mats.append(_pack(np.array([[em, ep], [ep, em]])))
+            mats.append(np.array([[em, ep], [ep, em]]))
             real_flags.append(False)
-        elif len(controls) == 1 and len(targets) == 1:
-            kinds.append("CU")
-            supports.append((controls[0], targets[0]))
-            mats.append(_pack(_base_matrix(op, params)))
-            real_flags.append(_has_real_matrix(op))
         else:
-            kinds.append("U")
-            supports.append((targets[0],))
-            mats.append(_pack(_base_matrix(op, params)))
-            real_flags.append(_has_real_matrix(op))
-    return kinds, supports, np.stack(mats), real_flags
+            if len(controls) == 1 and len(targets) == 1:
+                kinds.append("CU")
+                supports.append((controls[0], targets[0]))
+            else:
+                kinds.append("U")
+                supports.append((targets[0],))
+            m = _base_matrix(op, params)
+            mats.append(m)
+            real_flags.append(_real_flag(op, m, exact_real))
+    return kinds, supports, mats, real_flags
+
+
+def pallas_block_specs(block: PallasBlock, params):
+    """(kinds, supports, gate_mats, real_flags) for a PallasBlock's ops
+    (see :func:`_block_matrices`); ``gate_mats`` is a host float32
+    (K, 2, 2, 2) array [k, row, col, re/im]."""
+    kinds, supports, mats, real_flags = _block_matrices(block, params)
+    return kinds, supports, np.stack([_pack(m) for m in mats]), real_flags
+
+
+def pallas_block_specs_df64(block: PallasBlock, params):
+    """:func:`pallas_block_specs` for the df64 kernel: the same kinds and
+    supports, every matrix built in complex128 and split hi/lo into a
+    (K, 2, 2, 4) float32 array [k, row, col, (re_hi, re_lo, im_hi,
+    im_lo)]."""
+    kinds, supports, mats, real_flags = _block_matrices(block, params,
+                                                        exact_real=True)
+    return kinds, supports, fused_df64.pack_gate_mats_df64(mats), real_flags
 
 
 def _spec_anchors(kinds, supports, limit):
@@ -325,6 +367,80 @@ def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
                              num_qubits, device=device)
 
 
+def _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
+                           num_qubits: int):
+    """Run prepared df64 gate specs through the df64 kernel in planned
+    passes (the plan of the f32 kernel: both take the same local sets)."""
+    plan = _block_plan(num_qubits, tuple(kinds),
+                       tuple(tuple(s) for s in supports))
+    for item in plan:
+        idx = list(item.gate_idx)
+        specs = tuple((kinds[i],) + tuple(p)
+                      for i, p in zip(idx, item.positions))
+        planes = fused_df64.apply_fused_layer_df64(
+            *planes, specs, gm[idx], pair_bits=item.pair_bits,
+            real_flags=tuple(real_flags[i] for i in idx))
+    return planes
+
+
+def _complex_planes(planes):
+    """df64 planes with the imaginary pair materialized (zeros for a real
+    carry)."""
+    rh, rl, ih, il = planes
+    if ih is None:
+        ih, il = torch.zeros_like(rh), torch.zeros_like(rl)
+    return rh, rl, ih, il
+
+
+def _apply_pallas_block_df64(planes, block: PallasBlock, params,
+                             num_qubits: int):
+    """Run one PallasBlock on df64 planes. A complex gate entering a real
+    carry materializes the imaginary planes first."""
+    kinds, supports, gm, real_flags = pallas_block_specs_df64(block, params)
+    if not all(real_flags):
+        planes = _complex_planes(planes)
+    return _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
+                                  num_qubits)
+
+
+def run_items_df64(planes, items: Sequence, params, n: int):
+    """Execute planned items on df64 planes: PallasBlocks through the df64
+    kernel, every other item op by op (ops/df64.apply_op_df64), as the JAX
+    package's execute_df64 does."""
+    params = _host_params(params)
+    for item in items:
+        if isinstance(item, PallasBlock):
+            planes = _apply_pallas_block_df64(planes, item, params, n)
+            continue
+        planes = _complex_planes(planes)
+        members = item.ops if isinstance(item, (DiagBlock, FusedBlock)) \
+            else [item]
+        for op in members:
+            planes = dfm.apply_op_df64(planes, op, params)
+    return planes
+
+
+def execute_df64(planes, ops: Sequence, params=None, fuse: bool = True,
+                 max_fuse: int = 2):
+    """Apply ``ops`` to the df64 state ``(re_hi, re_lo, im_hi, im_lo)``;
+    ``im_hi = im_lo = None`` declares it real (2-plane kernel passes while
+    every gate is real). Returns planes with the same convention."""
+    n = sv.num_qubits_of(planes[0])
+    return run_items_df64(planes, plan_items(ops, n, fuse, max_fuse), params,
+                          n)
+
+
+def run_ops_f64(re, im, ops: Sequence, params=None):
+    """The exact double-precision engine: every op in order on the
+    complex128 state, in plain torch (the JAX package runs it as plain XLA,
+    ``pairsim.compile_pair_ir``). Returns the full float64 pair."""
+    params = _host_params(params)
+    state = torch.complex(re, im if im is not None else torch.zeros_like(re))
+    for op in ops:
+        state = apply_op(state, op, params)
+    return state.real.contiguous(), state.imag.contiguous()
+
+
 def apply_op(state: torch.Tensor, op: GateOp, params=None) -> torch.Tensor:
     """Apply one GateOp to a complex state."""
     if op.name == "SWAP_BITS":
@@ -383,6 +499,13 @@ def init_pair(n: int, device=None):
     """|0...0> as a (re, im) float32 pair."""
     re = init_real(n, device)
     return re, torch.zeros_like(re)
+
+
+def init_real64(n: int, device) -> torch.Tensor:
+    """|0...0> as one real float64 plane."""
+    re = torch.zeros(1 << n, dtype=torch.float64, device=device)
+    re[0] = 1.0
+    return re
 
 
 def plan_items(ops: Sequence, n: int, fuse: bool = True,
@@ -488,14 +611,20 @@ class _PlanCache:
 _PLAN_CACHE = _PlanCache()
 
 
+def _plan_key(ir: CircuitIR, *extra):
+    """Structural cache key of an IR plus the concrete parameter values the
+    plan bakes in."""
+    baked = tuple(float(p) for op in ir.ops for p in op.params
+                  if not isinstance(p, ParamRef))
+    return (ir.structural_key(), baked) + extra
+
+
 def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2):
     """Return ``run((re, im_or_None), params, device=None) -> (re,
     im_or_None)`` for this IR: the plan is made once and cached by
     structural key (plus any concrete parameter values, which the plan
     bakes in). ``device`` places a state started from ``re=None``."""
-    baked = tuple(float(p) for op in ir.ops for p in op.params
-                  if not isinstance(p, ParamRef))
-    key = (ir.structural_key(), baked, fuse, max_fuse)
+    key = _plan_key(ir, fuse, max_fuse)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         return cached
@@ -506,6 +635,30 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2):
         re, im = pair
         return run_items(re, im, items, params, n,
                          device=device if re is None else re.device)
+
+    _PLAN_CACHE.put(key, run)
+    return run
+
+
+def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
+                          max_fuse: int = 2):
+    """Return ``run((re, im_or_None), params) -> (re, im_or_None)`` over
+    float64 planes through the double-float engine: the pair is split into
+    hi/lo float32 planes at entry (exact to ~2^-49 relative), runs the
+    cached plan with PallasBlocks on the df64 kernel, and is promoted back
+    to float64 at exit. ``im=None`` carries a real state at half the
+    traffic; the output is ``(re, None)`` only if it stayed real."""
+    key = _plan_key(ir, fuse, max_fuse, "df64")
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        return cached
+    n = ir.num_qubits
+    items = plan_items(list(ir.ops), n, fuse, max_fuse)
+
+    def run(pair, params):
+        planes = dfm.state_from_pair_f64(*pair)
+        return dfm.state_to_pair_f64(run_items_df64(planes, items, params,
+                                                    n))
 
     _PLAN_CACHE.put(key, run)
     return run

@@ -38,19 +38,20 @@ def ir_from_reference(ir) -> CircuitIR:
     return CircuitIR(int(ir.num_qubits), ops, name=str(ir.name))
 
 
-def params_from_numpy(values, device=None) -> torch.Tensor:
-    """A parameter vector as a float32 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+def params_from_numpy(values, device=None, dtype=np.float32) -> torch.Tensor:
+    """A parameter vector as a ``dtype`` (float32 or float64) tensor on
+    ``device``."""
+    return torch.as_tensor(np.asarray(values, dtype), device=device)
 
 
-def state_from_numpy(re, im, device=None
+def state_from_numpy(re, im, device=None, dtype=np.float32
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A float-pair state as float32 planes on ``device`` (``im`` None for
-    a real state)."""
-    out_re = torch.as_tensor(np.asarray(re, np.float32).reshape(-1),
+    """A float-pair state as ``dtype`` (float32 or float64) planes on
+    ``device`` (``im`` None for a real state)."""
+    out_re = torch.as_tensor(np.ascontiguousarray(re, dtype).reshape(-1),
                              device=device).contiguous()
     if im is None:
         return out_re, None
-    out_im = torch.as_tensor(np.asarray(im, np.float32).reshape(-1),
+    out_im = torch.as_tensor(np.ascontiguousarray(im, dtype).reshape(-1),
                              device=device).contiguous()
     return out_re, out_im

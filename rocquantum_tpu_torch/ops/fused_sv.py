@@ -111,6 +111,12 @@ def _check_layer(re, im, specs, gate_mats, pair_bits, real_flags,
     if tuple(np.shape(gate_mats)) != (len(specs), 2, 2, 2):
         raise ValueError(f"gate_mats must have shape ({len(specs)}, 2, 2, 2)"
                          f", got {tuple(np.shape(gate_mats))}")
+    return n, specs, _check_specs(n, specs, pair_bits), real_flags
+
+
+def _check_specs(n: int, specs, pair_bits) -> Tuple[int, ...]:
+    """Check that every spec fits a pass with these pair bits on an n-qubit
+    state; returns the pair bits sorted."""
     w = window_bits(n)
     pair_bits = tuple(sorted({int(p) for p in pair_bits}))
     if len(pair_bits) > MAX_PAIRS:
@@ -127,7 +133,7 @@ def _check_layer(re, im, specs, gate_mats, pair_bits, real_flags,
         if any(q not in local for q in _anchored(spec, w)):
             raise ValueError(f"{spec} touches a qubit outside the pass's "
                              f"local set (bits < {w} and {pair_bits})")
-    return n, specs, pair_bits, real_flags
+    return pair_bits
 
 
 def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
@@ -138,14 +144,15 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
     """Apply ``specs`` to the state in one pass; returns ``(re, im)``.
 
     On CUDA the planes are updated in place and returned (a fresh ``re`` in
-    the ``re=None`` mode, allocated on ``device``); on the CPU the plain
-    reference returns new planes. Raises ``ValueError`` on specs the pass
-    cannot take and ``RuntimeError`` when the launch fails."""
+    the ``re=None`` mode, allocated on ``device``, which defaults to the
+    current CUDA device); on the CPU the plain reference returns new
+    planes. Raises ``ValueError`` on specs the pass cannot take and
+    ``RuntimeError`` when the launch fails."""
     n, specs, pair_bits, real_flags = _check_layer(
         re, im, specs, gate_mats, pair_bits, real_flags, num_qubits)
     if re is not None:
         device = re.device
-    device = torch.device(device if device is not None else "cpu")
+    device = torch.device(device if device is not None else "cuda")
     if device.type != "cuda":
         return apply_fused_layer_reference(re, im, specs, gate_mats,
                                            real_flags=real_flags,
@@ -183,20 +190,21 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
 
 
 def _device_table(specs, gate_mats, real_flags, device) -> torch.Tensor:
-    """One int32 device buffer holding the spec table (K, 3), the real
-    flags (K,) and the gate matrices (K, 8) as float32 bits: a single
-    asynchronous copy from pinned memory per pass."""
+    """One int32 device buffer holding the spec table (K, 3) at word 0, the
+    real flags (K,) at word 3K and the gate matrices (K, 8) here, (K, 16)
+    in the df64 kernel, as float32 bits at word 4K: a single asynchronous
+    copy from pinned memory per pass."""
     k = len(specs)
-    buf = np.zeros(max(12 * k, 1), np.int32)
+    if isinstance(gate_mats, torch.Tensor):
+        gate_mats = gate_mats.detach().cpu().numpy()
+    mats = np.ascontiguousarray(gate_mats, np.float32).reshape(-1)
+    buf = np.zeros(max(4 * k + mats.size, 1), np.int32)
     for i, spec in enumerate(specs):
         buf[3 * i] = _KIND_CODES[spec[0]]
         buf[3 * i + 1] = spec[1]
         buf[3 * i + 2] = spec[2] if len(spec) > 2 else -1
     buf[3 * k:4 * k] = np.asarray(real_flags, np.int32)
-    if isinstance(gate_mats, torch.Tensor):
-        gate_mats = gate_mats.detach().cpu().numpy()
-    mats = np.ascontiguousarray(gate_mats, np.float32).reshape(k * 8)
-    buf[4 * k:12 * k] = mats.view(np.int32)
+    buf[4 * k:4 * k + mats.size] = mats.view(np.int32)
     host = torch.from_numpy(buf).pin_memory()
     return host.to(device, non_blocking=True)
 

@@ -1,11 +1,12 @@
 """Readout on the float-pair state: norms, Pauli expectations,
 probabilities, measurement, sampling and slices.
 
-The f32 readout subset of ``rocquantum_tpu/ops/pairsim.py``, in plain
-torch on the device that holds the state. Every function takes the state
-as flat ``(2^n,)`` float32 planes ``(re, im)``; ``im=None`` is a real
+The readout subset of ``rocquantum_tpu/ops/pairsim.py``, in plain torch
+on the device that holds the state. Every function takes the state as flat
+``(2^n,)`` float32 or float64 planes ``(re, im)``; ``im=None`` is a real
 state. Bit tests use strided views (no index arrays), and every reduction
-accumulates in float64.
+accumulates in float64. ``collapse_pair`` guards its renormalization with
+the precision's ``config.eps()``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _bit_halves(x: torch.Tensor, q: int):
 
 
 def probs_pair(re: torch.Tensor, im: Optional[torch.Tensor]) -> torch.Tensor:
-    """|amplitude|^2 as a float32 vector."""
+    """|amplitude|^2 in the planes' dtype."""
     return re * re if im is None else re * re + im * im
 
 

@@ -159,7 +159,8 @@ def test_start_from_zero_complex_block():
         None, None, JaxBlock(ops=list(jax_ir.ops)), None, interpret=True,
         num_qubits=N)
     got = port_interp._apply_pallas_block_pair(
-        None, None, PallasBlock(ops=list(port_ir.ops)), None, N)
+        None, None, PallasBlock(ops=list(port_ir.ops)), None, N,
+        device="cpu")
     assert got[1] is not None
     np.testing.assert_allclose(got[0].numpy(), _np(want[0]), atol=ATOL)
     np.testing.assert_allclose(got[1].numpy(), _np(want[1]), atol=ATOL)

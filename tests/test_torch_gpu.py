@@ -1,4 +1,5 @@
-"""The CUDA fused-layer kernel on the card, against its plain-torch version.
+"""The CUDA fused-layer kernels (f32 and df64) on the card, against their
+plain-torch versions.
 
 Marked ``gpu``: these tests need a CUDA device and skip without one. This
 file imports no jax, so on a machine without JAX it runs on its own:
@@ -14,7 +15,7 @@ import torch
 
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir, qft_ir
-from rocquantum_tpu_torch.ops import fused_sv
+from rocquantum_tpu_torch.ops import df64, fused_df64, fused_sv
 
 pytestmark = pytest.mark.gpu
 
@@ -27,6 +28,8 @@ def cuda():
 
 
 def _random_pass(rng, n, pair_bits, real, count=40):
+    """Random specs of every kind for one pass, with their 2x2 matrices as
+    complex128."""
     w = fused_sv.window_bits(n)
     local = list(range(w)) + list(pair_bits)
     specs, mats = [], []
@@ -51,9 +54,13 @@ def _random_pass(rng, n, pair_bits, real, count=40):
         else:
             m, _ = np.linalg.qr(rng.normal(size=(2, 2))
                                 + 1j * rng.normal(size=(2, 2)))
-        m = np.asarray(m, np.complex128)
-        mats.append(np.stack([m.real, m.imag], -1).astype(np.float32))
-    return specs, np.stack(mats), [real] * count
+        mats.append(np.asarray(m, np.complex128))
+    return specs, mats, [real] * count
+
+
+def _pack_f32(mats):
+    return np.stack([np.stack([m.real, m.imag], -1) for m in mats]).astype(
+        np.float32)
 
 
 @pytest.mark.parametrize("mode", ["real", "complex", "zero"])
@@ -61,7 +68,8 @@ def _random_pass(rng, n, pair_bits, real, count=40):
 def test_kernel_matches_reference(cuda, mode, pair_bits):
     n = 18
     rng = np.random.default_rng(len(pair_bits) * 3 + len(mode))
-    specs, gm, flags = _random_pass(rng, n, pair_bits, mode != "complex")
+    specs, mats, flags = _random_pass(rng, n, pair_bits, mode != "complex")
+    gm = _pack_f32(mats)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
     re = im = None
@@ -89,6 +97,42 @@ def test_wrapper_rejects_noncontiguous_plane(cuda):
         fused_sv.apply_fused_layer(re, None, [("U", 0)],
                                    np.zeros((1, 2, 2, 2), np.float32),
                                    real_flags=[True])
+
+
+@pytest.mark.parametrize("mode", ["real", "complex"])
+@pytest.mark.parametrize("pair_bits", [(), (12,), (10, 14, 17)])
+def test_df64_kernel_matches_reference(cuda, mode, pair_bits):
+    """The df64 kernel against its plain version on the same card, on the
+    promoted float64 values of a normalized state (amplitudes ~2^-9)."""
+    n = 18
+    rng = np.random.default_rng(len(pair_bits) * 5 + len(mode))
+    specs, mats, flags = _random_pass(rng, n, pair_bits, mode == "real")
+    gm = fused_df64.pack_gate_mats_df64(mats)
+    v = rng.normal(size=(2, 1 << n))
+    v /= np.linalg.norm(v)
+    re = torch.from_numpy(v[0]).to(cuda)
+    im = None if mode == "real" else torch.from_numpy(v[1]).to(cuda)
+    planes = df64.state_from_pair_f64(re, im)
+    want = fused_df64.apply_fused_layer_df64_reference(
+        *planes, specs, gm, real_flags=flags)
+    before = fused_df64.LAUNCHES
+    got = fused_df64.apply_fused_layer_df64(
+        *(None if p is None else p.clone() for p in planes), specs, gm,
+        pair_bits=pair_bits, real_flags=flags)
+    torch.cuda.synchronize()
+    assert fused_df64.LAUNCHES == before + 1
+    for a, b in zip(df64.state_to_pair_f64(got),
+                    df64.state_to_pair_f64(want)):
+        if b is not None:
+            torch.testing.assert_close(a, b, atol=1e-13, rtol=0)
+
+
+def test_df64_wrapper_rejects_noncontiguous_plane(cuda):
+    rh = torch.zeros(1 << 16, device=cuda)[::2]
+    with pytest.raises(ValueError):
+        fused_df64.apply_fused_layer_df64(
+            rh, torch.zeros_like(rh), None, None, [("U", 0)],
+            np.zeros((1, 2, 2, 4), np.float32), real_flags=[True])
 
 
 @contextlib.contextmanager
@@ -154,3 +198,39 @@ def test_readout_on_the_card_matches_cpu(cuda):
     probs = cpu.get_probabilities([0, 1, 2])
     hist = np.bincount(shots, minlength=8) / len(shots)
     assert 0.5 * np.abs(hist - probs).sum() <= 0.03
+
+
+@pytest.fixture
+def df64_mode():
+    old = "df64" if rq.df64_enabled() else rq.get_precision()
+    rq.set_precision("df64")
+    yield
+    rq.set_precision(old)
+
+
+@pytest.mark.parametrize("name", ["ansatz", "qft"])
+def test_df64_circuit_on_the_card_matches_cpu(cuda, df64_mode, name,
+                                              monkeypatch):
+    """set_precision("df64"): the flush on the card launches the df64
+    kernel, never its plain version, and lands on the CPU run's state
+    (plain df64 version)."""
+    n = 17
+    if name == "ansatz":
+        ir = hardware_efficient_ansatz_ir(n, 3)
+        theta = np.random.default_rng(2).normal(size=ir.num_params)
+    else:
+        ir, theta = qft_ir(n), None
+    plain = fused_df64.apply_fused_layer_df64_reference
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain df64 layer ran on the card")
+
+    monkeypatch.setattr(fused_df64, "apply_fused_layer_df64_reference",
+                        refuse)
+    before = fused_df64.LAUNCHES
+    got = _run(ir, cuda, theta)
+    assert fused_df64.LAUNCHES > before
+    monkeypatch.setattr(fused_df64, "apply_fused_layer_df64_reference",
+                        plain)
+    want = _run(ir, torch.device("cpu"), theta)
+    np.testing.assert_allclose(got, want, atol=1e-13)

@@ -11,7 +11,7 @@ import rocquantum_tpu_torch
 PKG_DIR = os.path.dirname(rocquantum_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
 
-_BELL = r"""
+_BLOCK_JAX = r"""
 import sys
 for name in list(sys.modules):
     if name.split(".")[0] in ("jax", "jaxlib", "rocquantum_tpu"):
@@ -19,7 +19,9 @@ for name in list(sys.modules):
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["rocquantum_tpu"] = None
+"""
 
+_BELL = _BLOCK_JAX + r"""
 import numpy as np
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch.ops import fused_sv
@@ -41,31 +43,66 @@ print("ok")
 """
 
 
-def test_bell_circuit_runs_with_jax_blocked():
+# a double-float circuit at the kernel-routing width: kernel blocks go
+# through the df64 layer (its plain version on the CPU), the state stays
+# (re, None) and normalized
+_DF64 = _BLOCK_JAX + r"""
+import numpy as np
+import rocquantum_tpu_torch as rq
+rq.set_precision("df64")
+c = rq.Circuit(15, rq.Simulator(device="cpu"))
+for q in range(15):
+    c.ry(0.2 + 0.1 * q, q)
+c.cx(0, 14)
+c.flush()
+assert c.state[1] is None
+assert abs(np.linalg.norm(c.get_statevector()) - 1.0) < 1e-13
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
+def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _BELL], env=env, cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_bell_circuit_runs_with_jax_blocked():
+    _run_blocked(_BELL)
+
+
+def test_df64_circuit_runs_with_jax_blocked():
+    _run_blocked(_DF64)
+
+
+def _assert_imports_no_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "rocquantum_tpu"), \
+                f"{path} imports {mod}"
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     for root, _, files in os.walk(PKG_DIR):
         for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    mods = [node.module or ""]
-                else:
-                    continue
-                for mod in mods:
-                    top = mod.split(".")[0]
-                    assert top not in ("jax", "jaxlib", "rocquantum_tpu"), \
-                        f"{path} imports {mod}"
+            if name.endswith(".py"):
+                _assert_imports_no_jax(os.path.join(root, name))
+
+
+def test_chip_scripts_import_no_jax():
+    for name in ("chip_smoke.py", "chip_profile.py"):
+        _assert_imports_no_jax(os.path.join(REPO, name))

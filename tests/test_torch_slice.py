@@ -213,5 +213,13 @@ def test_reset_and_readback_slice():
     c.reset()
     psi = c.get_statevector()
     assert psi[0] == 1 and np.count_nonzero(psi) == 1
-    with pytest.raises(NotImplementedError):
-        rq.set_precision("double")
+    # double precision runs: a reset makes a float64 state
+    rq.set_precision("double")
+    try:
+        c.reset()
+        c.h(0)
+        psi = c.get_statevector()
+        assert c.state[0].dtype == torch.float64
+        assert abs(psi[1] - 2 ** -0.5) < 1e-15
+    finally:
+        rq.set_precision("single")
