@@ -8,7 +8,9 @@ Run from the repository root, with one CUDA device visible:
 Phases:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions
      and which gate-pass planner runs;
-  2. build the fused-layer kernel (csrc/fused_sv.cu) from the checkout;
+  2. build the four kernels (csrc/fused_sv.cu, fused_df64.cu,
+     rotate_bits.cu, region_dot.cu) from the checkout, one nvcc per source,
+     all started together;
   3. kernel against its plain-torch version on the card: seeded random
      passes at n = 22 over every gate kind, {no pair bits, one, three},
      {real plane, complex} and the start-from-|0...0> mode, then every pass
@@ -17,7 +19,9 @@ Phases:
      3 energy requests (transverse-field Ising Hamiltonian), held against
      the same requests run with the plain layer function; QFT of a basis
      state at n = 26 against its closed form; GHZ at n = 29, sampled;
-  5. times: kernel and plain ms per pass, passes per layer, gates/s;
+  5. times: kernel and plain ms per pass, passes per layer, gates/s; the
+     kernel's start-from-|0...0> mode at n = 29 beside its plain version,
+     torch.zeros and its write bound;
   6. the df64 kernel (csrc/fused_df64.cu) against its plain-torch version
      on the card: seeded random passes at n = 22 over every gate kind,
      {no pair bits, one, three}, {real carry, complex carry}, then every
@@ -27,12 +31,22 @@ Phases:
      8 RY-column + CNOT-ring layers answering 3 TFIM energy requests, held
      against one request run with the plain df64 layer function and one
      under set_precision("double") (exact complex128 per op); QFT of a
-     basis state at n = 26 in df64 against its closed form; times.
+     basis state at n = 26 in df64 against its closed form; times;
+  8. the index-bit rotation kernel (csrc/rotate_bits.cu) against its
+     plain-torch version, bitwise: n = 22, every shift, batch 1 and 3;
+     n = 29, shifts 1, 3, 12, 21, timed beside the plain version (itself
+     one PyTorch copy), a device copy of the plane and the bound;
+  9. the relabel path at n = 29: one RY layer from |0...0> through
+     relabel.execute_plan, planned with pair bits and with window-only
+     passes plus Rotations; the two states agree and match the closed form;
+  10. the tensor-core probe (csrc/region_dot.cu): the 3xTF32 lane and row
+     dots against float64 at R = 128 and R = 2^17, timed beside
+     torch.matmul in full float32 and the bound.
 
-Both kernels are built at the start, one nvcc per source, in parallel.
-Each main path (phases 4 and 7) runs with every launch count set to 0 just
-before it and read just after. Prints a kernels JSON line (time, plain
-time and bound of each kernel), the nvidia-smi line and, last, the
+Each path (phases 4, 7 and 9, and the probe's R = 2^17 call of each dot)
+runs with every launch count set to 0 just before it and read just after.
+Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
+time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
 no result line); so does a machine without CUDA.
 """
@@ -61,11 +75,18 @@ DF64_ENERGY_RTOL = 1e-12  # df64 kernel path vs plain df64 layers
 DOUBLE_ENERGY_RTOL = 1e-11  # df64 vs the exact complex128 engine
 DF64_NORM_TOL = 1e-12
 DF64_QFT_ATOL = 1e-13
+ROTATE_N = 29         # one real plane of the main path
+ROTATE_SHIFTS = (1, 3, 12, 21)
+PROBE_ROWS_SMALL = 1 << 7   # the MXU probe's own size (tpu_mxu_probe.py:42)
+PROBE_ROWS = 1 << 17        # (R, 4096) float32 = one n = 29 plane
+PROBE_TOL = 1e-5      # region dots: max abs error / max|y| vs float64
 
-# H100 SXM peaks (NVIDIA data sheet): device memory and FP32 outside the
-# tensor cores; a bound is the larger of bytes / HBM and operations / FP32
+# H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
+# tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
+# and operations / the peak of the units that do them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def check(ok, what):
@@ -169,6 +190,14 @@ def max_err(a, b):
     return float((a - b).abs().max())
 
 
+def zero_counts(*modules):
+    """Set every launch count of these kernel modules to 0."""
+    for module in modules:
+        for name in dir(module):
+            if name.endswith("LAUNCHES"):
+                setattr(module, name, 0)
+
+
 @contextlib.contextmanager
 def plain_layers(module, name, plain):
     """Route the slice's passes through the plain-torch layer function."""
@@ -180,23 +209,34 @@ def plain_layers(module, name, plain):
         setattr(module, name, kernel_fn)
 
 
-def time_turns(run_kernel, run_plain, kernel_reps):
-    """ms per pass, CUDA events, in turns: plain, kernel, kernel, plain."""
+def timed(fn, reps):
+    """ms per unit of work, CUDA events: ``fn(reps)`` runs the work and
+    returns how many units it ran; one warm-up call first."""
     import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    count = fn(1)  # warm-up
+    torch.cuda.synchronize()
+    start.record()
+    count = fn(reps)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / count
 
-    def timed(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        count = fn(1)  # warm-up
-        torch.cuda.synchronize()
-        start.record()
-        count = fn(reps)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / count
 
-    return (timed(run_plain, 1), timed(run_kernel, kernel_reps),
-            timed(run_kernel, kernel_reps), timed(run_plain, 1))
+def repeat(call):
+    """``call()`` as a ``timed`` work function: one unit per call."""
+    def run(reps):
+        for _ in range(reps):
+            call()
+        return reps
+    return run
+
+
+def time_turns(run_kernel, run_plain, kernel_reps, plain_reps=1):
+    """ms per pass, CUDA events, in turns: plain, kernel, kernel, plain."""
+    return (timed(run_plain, plain_reps), timed(run_kernel, kernel_reps),
+            timed(run_kernel, kernel_reps), timed(run_plain, plain_reps))
 
 
 def main():
@@ -214,7 +254,8 @@ def main():
                                              hardware_efficient_ansatz_ir,
                                              qft_ir)
     from rocquantum_tpu_torch.ops import (_build, _native_planner, df64,
-                                          fused_df64, fused_sv, pairsim)
+                                          fused_df64, fused_sv, pairsim,
+                                          region_dot, relabel, rotate)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,12 +271,13 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(m.build) for m in (fused_sv, fused_df64)]:
+    kernel_modules = (fused_sv, fused_df64, rotate, region_dot)
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:
+        for job in [pool.submit(m.build) for m in kernel_modules]:
             job.result()
-    print(f"build: fused_sv.cu and fused_df64.cu in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for name in ("fused_sv", "fused_df64"):
+    print(f"build: fused_sv.cu, fused_df64.cu, rotate_bits.cu and "
+          f"region_dot.cu in parallel in {time.perf_counter() - t0:.2f} s")
+    for name in ("fused_sv", "fused_df64", "rotate_bits", "region_dot"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -357,10 +399,12 @@ def main():
         check(circ.state[1] is None, "ansatz state stays real")
         return energy, norm, t_flush
 
-    fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
     answers = [answer(theta) for theta in requests]
     launches = fused_sv.LAUNCHES
+    init_launches = fused_sv.INIT_LAUNCHES
     check(fused_df64.LAUNCHES == 0, "the f32 slice launched no df64 pass")
+    check(init_launches > 0, "each request started from the init launch")
     with plain_layers(fused_sv, "apply_fused_layer",
                       fused_sv.apply_fused_layer_reference):
         plain_answers = [answer(theta) for theta in requests]
@@ -433,10 +477,15 @@ def main():
         complex_state=False, df=False)
     print(f"bound per pass at n={n}, real plane: {f32_bound:.4f} ms "
           f"({f32_bound_by})")
+    init = init_timing(fused_sv, n, dev)
+    init["launches"] = init_launches
+    print(f"init launches in the main-path run: {init_launches}")
 
     df = df64_phases(rq, interpreter, PallasBlock,
                      hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
                      fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
+    rot = rotation_phases(fused_sv, relabel, rotate, rng, gen, dev)
+    lane, row = probe_phase(region_dot, gen, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -451,11 +500,35 @@ def main():
         "bound_by": f32_bound_by,
         "library_ms": None,
     }, {
+        "name": "fused_layer_init",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/fused_sv.cu",
+        "replaces": "rocquantum_tpu/ops/pallas_sv.py:1622",
+        **init,
+    }, {
         "name": "fused_layer_df64",
         "route": "cuda",
         "source": "rocquantum_tpu_torch/csrc/fused_df64.cu",
         "replaces": "rocquantum_tpu/ops/pallas_df64.py:240",
         **df,
+    }, {
+        "name": "rotate_bits",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/rotate_bits.cu",
+        "replaces": "rocquantum_tpu/ops/relabel.py:91",
+        **rot,
+    }, {
+        "name": "region_dot_lane",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/region_dot.cu",
+        "replaces": ".scratch/tpu_mxu_probe.py:27",
+        **lane,
+    }, {
+        "name": "region_dot_row",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/region_dot.cu",
+        "replaces": ".scratch/tpu_mxu_probe.py:55",
+        **row,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -657,6 +730,271 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     return {"launches": launches, "max_abs_err": worst,
             "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def init_timing(fused_sv, n, dev):
+    """The fused kernel's start-from-|0...0> mode (the JAX package's
+    _gen_zero_input and init_zero_state_tiled) on its own at n = 29:
+    bitwise against its plain version, timed beside it, beside one
+    torch.zeros call and beside its bound (one plane written once)."""
+    import numpy as np
+    import torch
+
+    empty = np.zeros((0, 2, 2, 2), np.float32)
+
+    def kernel():
+        return fused_sv.apply_fused_layer(None, None, (), empty,
+                                          num_qubits=n, device=dev)[0]
+
+    def plain():
+        return fused_sv._zero_plane(n, dev)
+
+    check(torch.equal(kernel(), plain()), "init kernel == plain |0...0>")
+    turns = time_turns(repeat(kernel), repeat(plain), 10, 10)
+    library = min(timed(repeat(lambda: torch.zeros(1 << n, device=dev)), 10)
+                  for _ in range(2))
+    bound = (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"init |0...0> at n={n} (ms, in turns): plain {turns[0]:.4f}, "
+          f"kernel {turns[1]:.4f}, kernel {turns[2]:.4f}, plain "
+          f"{turns[3]:.4f}; torch.zeros {library:.4f}; bound {bound:.4f} "
+          f"(bytes)")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, "ms": min(turns[1], turns[2]),
+            "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": library}
+
+
+def rotation_plan(relabel, n, qubits, reach):
+    """One gate per qubit of ``qubits``, scheduled without pair bits: a
+    window-only pass takes every gate whose qubit currently sits below
+    ``reach``; a Rotation then brings the lowest pending qubit to bit
+    ROT_LO (and the ones above it into the window); a last Rotation
+    restores the identity layout. Positions in the plan are the physical
+    bits at the time of each pass."""
+    size = n - relabel.ROT_LO
+
+    def phys(q, total):
+        if q < relabel.ROT_LO:
+            return q
+        return relabel.ROT_LO + (q - relabel.ROT_LO - total) % size
+
+    pending = list(range(len(qubits)))
+    plan, total = [], 0
+    while pending:
+        here = [i for i in pending if phys(qubits[i], total) < reach]
+        if here:
+            sub = relabel.plan_full_layer(
+                n, [(phys(qubits[i], total),) for i in here], reach,
+                pair_ok=False)
+            plan += [relabel.KernelPass(
+                gate_idx=tuple(here[j] for j in p.gate_idx),
+                positions=p.positions) for p in sub]
+            pending = [i for i in pending if i not in here]
+        if pending:
+            shift = min(phys(qubits[i], total) for i in pending) \
+                - relabel.ROT_LO
+            plan.append(relabel.Rotation(shift))
+            total += shift
+    if total % size:
+        plan.append(relabel.Rotation(size - total % size))
+    return plan
+
+
+def rotation_phases(fused_sv, relabel, rotate, rng, gen, dev):
+    """Phases 8 and 9: the rotation kernel against its plain version on the
+    card, then the relabel path at n = 29. Returns the rotation kernel's
+    numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    t_phases = time.perf_counter()
+    # ---- 8. rotation kernel vs plain ------------------------------------
+    n = RANDOM_N
+    size = n - rotate.ROT_LO
+    for batch in (1, 3):
+        x = torch.randn(batch, 1 << n, generator=gen, device=dev)
+        for shift in range(1, size):
+            got = rotate.rotate_region(x, n, shift)
+            torch.cuda.synchronize()
+            check(torch.equal(got, rotate.rotate_bits_down(x, n, shift)),
+                  f"rotation n={n} batch={batch} shift={shift} bitwise")
+    print(f"rotation kernel vs plain n={n}: shifts 1..{size - 1}, batch 1 "
+          f"and 3, bitwise equal")
+
+    n = ROTATE_N
+    x = torch.randn(1 << n, generator=gen, device=dev)
+    bound = 2 * (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
+    times = {}
+    for shift in ROTATE_SHIFTS:
+        got = rotate.rotate_region(x, n, shift)
+        torch.cuda.synchronize()
+        check(torch.equal(got, rotate.rotate_bits_down(x, n, shift)),
+              f"rotation n={n} shift={shift} bitwise")
+        del got
+        times[shift] = time_turns(
+            repeat(lambda: rotate.rotate_region(x, n, shift)),
+            repeat(lambda: rotate.rotate_bits_down(x, n, shift)), 10, 3)
+        print(f"rotation n={n} shift={shift} (ms, in turns): plain "
+              f"{times[shift][0]:.4f}, kernel {times[shift][1]:.4f}, kernel "
+              f"{times[shift][2]:.4f}, plain {times[shift][3]:.4f}; bound "
+              f"{bound:.4f} (bytes)")
+    out = torch.empty_like(x)
+    copy_ms = min(timed(repeat(lambda: out.copy_(x)), 10) for _ in range(2))
+    print(f"device copy of the n={n} plane: {copy_ms:.4f} ms")
+    del x, out
+    torch.cuda.empty_cache()
+
+    # ---- 9. the relabel path: one RY layer, pair bits vs rotations -------
+    n = ANSATZ_N
+    reach = fused_sv.window_bits(n)
+    thetas = rng.normal(size=n)
+    gm = pack_f32([np.array([[np.cos(t / 2), -np.sin(t / 2)],
+                             [np.sin(t / 2), np.cos(t / 2)]])
+                   for t in thetas])
+    kinds, flags = ["U"] * n, [True] * n
+    pair_plan = relabel.plan_full_layer(n, [(q,) for q in range(n)], reach)
+    rot_plan = rotation_plan(relabel, n, list(range(n)), reach)
+    rotations = sum(isinstance(p, relabel.Rotation) for p in rot_plan)
+
+    def run(plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        re, im = relabel.execute_plan(None, None, plan, gm, n, kinds, flags,
+                                      device=dev)
+        torch.cuda.synchronize()
+        check(im is None, "the RY layer stays a real plane")
+        return re, (time.perf_counter() - t0) * 1e3
+
+    zero_counts(fused_sv, rotate)
+    a, ms_a = run(pair_plan)
+    counts_a = (fused_sv.LAUNCHES, fused_sv.INIT_LAUNCHES, rotate.LAUNCHES)
+    zero_counts(fused_sv, rotate)
+    b, ms_b = run(rot_plan)
+    counts_b = (fused_sv.LAUNCHES, fused_sv.INIT_LAUNCHES, rotate.LAUNCHES)
+    check(counts_a[0] > 0 and counts_a[2] == 0, f"pair plan {counts_a}")
+    check(counts_b[0] > 0 and counts_b[2] > 0,
+          f"the rotation plan launched both kernels: {counts_b}")
+    err = max_err(a, b)
+    idx = rng.integers(0, 1 << n, 4096)
+    bits = (idx[:, None] >> np.arange(n)) & 1
+    want = np.prod(np.where(bits == 1, np.sin(thetas / 2),
+                            np.cos(thetas / 2)), axis=1)
+    got = a[torch.from_numpy(idx).to(dev)].double().cpu().numpy()
+    closed = float(np.abs(got - want).max())
+    del a, b
+    # warm (the planes come from the allocator's cache), in turns
+    ms = [run(plan)[1] for plan in (pair_plan, rot_plan, rot_plan,
+                                    pair_plan)]
+    print(f"relabel path n={n}, one RY layer from |0...0>: pair plan "
+          f"{len(pair_plan)} passes, launches (fused, init, rotation) "
+          f"{counts_a}; rotation plan {len(rot_plan) - rotations} passes + "
+          f"{rotations} rotations, launches {counts_b}; ms (first runs "
+          f"{ms_a:.2f}, {ms_b:.2f}; then in turns pair {ms[0]:.2f}, "
+          f"rotation {ms[1]:.2f}, rotation {ms[2]:.2f}, pair {ms[3]:.2f})")
+    print(f"relabel path: max abs diff between the plans {err:.3e}, vs the "
+          f"closed form at 4096 amplitudes {closed:.3e}")
+    check(err <= KERNEL_TOL, f"pair plan vs rotation plan: {err}")
+    check(closed <= KERNEL_TOL, f"RY layer vs closed form: {closed}")
+    torch.cuda.empty_cache()
+    print(f"rotation phases: {time.perf_counter() - t_phases:.1f} s")
+    main_shift = 3  # the relabel path's rotations are (almost all) by 3
+    check(all(isinstance(p, relabel.KernelPass) or p.shift == main_shift
+              for p in rot_plan[:-1]), "the path rotates by 3")
+    turns = times[main_shift]
+    return {"launches": counts_b[2], "max_abs_err": 0.0,
+            "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": min(turns[0], turns[3])}
+
+
+def probe_phase(region_dot, gen, dev):
+    """Phase 10: the tensor-core probe. Both 3xTF32 region dots against
+    float64 on the card at the probe's R = 128 and at R = 2^17 (one n = 29
+    plane), then timed beside torch.matmul in full float32 and the bound.
+    The probe is on no path of the package: its run is the one call of each
+    dot at R = 2^17, with the counts set to 0 just before it."""
+    import torch
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the float32 yardstick runs without TF32")
+    results = {}
+    for rows in (PROBE_ROWS_SMALL, PROBE_ROWS):
+        x = torch.randn(rows, region_dot.COLS, generator=gen, device=dev)
+        m = torch.randn(region_dot.LANE, region_dot.LANE, generator=gen,
+                        device=dev)
+        a = torch.randn(region_dot.TILE, region_dot.TILE, generator=gen,
+                        device=dev)
+        if rows == PROBE_ROWS:
+            zero_counts(region_dot)
+        got_lane = region_dot.lane_dot(x.clone(), m)
+        got_row = region_dot.row_dot(a, x.clone())
+        torch.cuda.synchronize()
+        if rows == PROBE_ROWS:
+            launches = {"lane": region_dot.LANE_LAUNCHES,
+                        "row": region_dot.ROW_LAUNCHES}
+        for name, got, want in (
+                ("lane", got_lane,
+                 region_dot.lane_dot_reference(x.double(), m.double())),
+                ("row", got_row,
+                 region_dot.row_dot_reference(a.double(), x.double()))):
+            err = float((got.double() - want).abs().max())
+            top = float(want.abs().max())
+            s_got = float((got.double() ** 2).sum())
+            s_want = float((want ** 2).sum())
+            rel = abs(s_got - s_want) / s_want
+            print(f"{name} dot R={rows} vs float64: max abs err {err:.3e} "
+                  f"({err / top:.2e} of max|y| {top:.2f}), rel err of "
+                  f"sum(y^2) {rel:.2e}")
+            check(err <= PROBE_TOL * top, f"{name} dot R={rows}: {err}")
+            results[name] = max(results.get(name, 0.0), err)
+            del want
+        del x, got_lane, got_row
+        torch.cuda.empty_cache()
+    check(launches == {"lane": 1, "row": 1}, f"probe launches {launches}")
+
+    # timing on orthogonal matrices: repeated in-place products stay finite
+    rows = PROBE_ROWS
+    x = torch.randn(rows, region_dot.COLS, generator=gen, device=dev)
+    m = torch.linalg.qr(torch.randn(region_dot.LANE, region_dot.LANE,
+                                    generator=gen, device=dev))[0].contiguous()
+    a = torch.linalg.qr(torch.randn(region_dot.TILE, region_dot.TILE,
+                                    generator=gen, device=dev))[0].contiguous()
+    xl = x.view(-1, region_dot.LANE)
+    xr = x.view(-1, region_dot.TILE, region_dot.COLS)
+    flops = {"lane": 2 * x.numel() * region_dot.LANE,
+             "row": 2 * x.numel() * region_dot.TILE}
+    calls = {
+        "lane": (lambda: region_dot.lane_dot(x, m),
+                 lambda: region_dot.lane_dot_reference(x, m),
+                 lambda: torch.matmul(xl, m)),
+        "row": (lambda: region_dot.row_dot(a, x),
+                lambda: region_dot.row_dot_reference(a, x),
+                lambda: torch.matmul(a, xr)),
+    }
+    out = {}
+    byte_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    for name, (kernel, plain, library) in calls.items():
+        turns = time_turns(repeat(kernel), repeat(plain), 10, 10)
+        lib = min(timed(repeat(library), 10) for _ in range(2))
+        check(bool(torch.isfinite(x).all()), f"{name} dot stays finite")
+        op_ms = 3 * flops[name] / TF32_OPS_PER_S * 1e3
+        fp32_ms = flops[name] / FP32_OPS_PER_S * 1e3
+        bound = max(byte_ms, op_ms)
+        print(f"{name} dot R={rows} (ms, in turns): plain {turns[0]:.4f}, "
+              f"kernel {turns[1]:.4f}, kernel {turns[2]:.4f}, plain "
+              f"{turns[3]:.4f}; torch.matmul float32 {lib:.4f}; bound "
+              f"{bound:.4f} (bytes {byte_ms:.4f}, 3xTF32 {op_ms:.4f}; the "
+              f"FP32 cores would need {fp32_ms:.4f})")
+        out[name] = {"launches": launches[name], "max_abs_err": results[name],
+                     "ms": min(turns[1], turns[2]),
+                     "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,
+                     "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                     "library_ms": lib}
+    del x, xl, xr
+    torch.cuda.empty_cache()
+    print(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
+    return out["lane"], out["row"]
 
 
 if __name__ == "__main__":

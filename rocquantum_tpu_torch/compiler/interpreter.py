@@ -41,6 +41,7 @@ from ..ops import statevec as sv
 from .ir import CircuitIR, GateOp, ParamRef
 from .passes import (DiagBlock, FusedBlock, PallasBlock, fuse_diagonals,
                      fuse_pallas_runs, plan_fusion)
+from .sharded_schedule import PERMUTE_BITS, SWAP_BITS, permutation_of
 
 # Smallest state the flush routes through the fused kernel. The JAX package
 # engages its kernels from n = 15 on; the port keeps the same threshold so
@@ -443,8 +444,10 @@ def run_ops_f64(re, im, ops: Sequence, params=None):
 
 def apply_op(state: torch.Tensor, op: GateOp, params=None) -> torch.Tensor:
     """Apply one GateOp to a complex state."""
-    if op.name == "SWAP_BITS":
+    if op.name == SWAP_BITS:
         return sv.swap_index_bits(state, op.targets[0], op.targets[1])
+    if op.name == PERMUTE_BITS:
+        return sv.permute_index_bits(state, *permutation_of(op))
     _, controls, targets = _split_op(op)
     return sv.apply_controlled_matrix(state, _base_matrix(op, params),
                                       controls, targets)

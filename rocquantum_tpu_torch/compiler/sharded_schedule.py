@@ -12,6 +12,17 @@ from typing import List, Sequence, Tuple
 from .ir import GateOp
 
 SWAP_BITS = "SWAP_BITS"  # pseudo-op: exchange two physical index bits
+# pseudo-op: composed multi-bit relabel -- new bit targets[i] takes the
+# value of old bit controls[i] (ops/statevec.permute_index_bits)
+PERMUTE_BITS = "PERMUTE_BITS"
+
+
+def permutation_of(op: GateOp) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(dsts, srcs) of a PERMUTE_BITS op; its adjoint is the inverse
+    permutation (the two swapped)."""
+    if op.is_adjoint:
+        return op.controls, op.targets
+    return op.targets, op.controls
 
 
 def _is_plain_swap(op: GateOp) -> bool:

@@ -25,7 +25,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .statevec import exposed_view_dims, num_qubits_of, swap_index_bits
+from .statevec import (exposed_view_dims, num_qubits_of, permute_index_bits,
+                       swap_index_bits)
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -229,10 +230,15 @@ def apply_op_df64(planes, op, params=None):
     ``params`` is the flush's host parameter vector."""
     # imported here: the interpreter imports this module
     from ..compiler.interpreter import _base_matrix, _split_op
-    from ..compiler.sharded_schedule import SWAP_BITS
+    from ..compiler.sharded_schedule import (PERMUTE_BITS, SWAP_BITS,
+                                             permutation_of)
     if op.name == SWAP_BITS:
         a, b = op.targets
         return tuple(None if p is None else swap_index_bits(p, a, b)
+                     for p in planes)
+    if op.name == PERMUTE_BITS:
+        dsts, srcs = permutation_of(op)
+        return tuple(None if p is None else permute_index_bits(p, dsts, srcs)
                      for p in planes)
     _, controls, targets = _split_op(op)
     return apply_matrix_df64(planes, _base_matrix(op, params), targets,

@@ -40,8 +40,10 @@ MAX_PAIRS = 3   # extra local bits above the window, anywhere in [W_BITS, n)
 
 _KIND_CODES = {"U": 0, "CNOT": 1, "CU": 2, "D2": 3}
 
-# kernel launches in this process (one per pass that reached the GPU)
+# kernel launches in this process (one per pass that reached the GPU), and
+# those of them in the start-from-|0...0> mode
 LAUNCHES = 0
+INIT_LAUNCHES = 0
 
 _LIB = None
 
@@ -176,8 +178,9 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
     bits = (ctypes.c_int * max(len(pair_bits), 1))(*pair_bits)
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = build()
-    global LAUNCHES
+    global LAUNCHES, INIT_LAUNCHES
     LAUNCHES += 1
+    INIT_LAUNCHES += gen_zero
     err = lib.rocq_fused_layer(
         re.data_ptr(), None if im is None else im.data_ptr(),
         addr, addr + 16 * k, addr + 12 * k, k, n, window_bits(n),

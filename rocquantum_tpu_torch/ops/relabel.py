@@ -1,11 +1,18 @@
-"""Kernel-pass planning: pack a gate list into fused-kernel passes.
+"""Kernel-pass planning and execution: the counterpart of
+``rocquantum_tpu/ops/relabel.py``.
 
-The planning half of ``rocquantum_tpu/ops/relabel.py``. A pass of the fused
-kernel (ops/fused_sv.py) reaches the low ``reach`` index bits plus up to
-``max_pairs`` "pair bits" above them; :func:`plan_full_layer` packs a whole
-gate list into the fewest such passes, dependency-aware. The scheduling loop
-runs in native C++ (``native/fusion_planner.cpp``) with the Python
-implementation here as fallback and differential-test oracle.
+A pass of the fused kernel (ops/fused_sv.py) reaches the low ``reach``
+index bits plus up to ``max_pairs`` "pair bits" above them;
+:func:`plan_full_layer` packs a whole gate list into the fewest such passes,
+dependency-aware. The scheduling loop runs in native C++
+(``native/fusion_planner.cpp``) with the Python implementation here as
+fallback and differential-test oracle.
+
+:func:`execute_plan` runs a plan: :class:`KernelPass` items through the
+fused kernel and :class:`Rotation` items (index-bit relabels of the region
+``[ROT_LO, n)``, the scheme pair bits replaced) through the rotation kernel
+of ops/rotate.py. The planner emits no rotations, as in the JAX package;
+callers that build rotation plans by hand still run them here.
 
 The kernel takes any set of pair bits, so the JAX package's limits on
 contiguous runs of pair bits (a Mosaic view-rank rule) do not apply here.
@@ -16,7 +23,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
 from . import fused_sv
+from .rotate import ROT_LO, rotate_bits_down, rotate_region  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +38,13 @@ class KernelPass:
     gate_idx: Tuple[int, ...]
     positions: Tuple[Tuple[int, ...], ...]
     pair_bits: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Rotation:
+    """Rotate index-bit region [ROT_LO, n) DOWN by ``shift``: the bit at
+    position ROT_LO + j moves to ROT_LO + ((j - shift) mod size)."""
+    shift: int
 
 
 def _items_to_plan(supports, items) -> List[KernelPass]:
@@ -137,17 +154,32 @@ def plan_full_layer(n: int, supports: Sequence[Tuple[int, ...]], reach: int,
     return plan
 
 
-def execute_plan(re, im, plan: Sequence[KernelPass], gate_mats, n: int,
+def execute_plan(re, im, plan: Sequence[object], gate_mats, n: int,
                  kinds: Sequence[str], real_flags: Sequence[bool] = None,
                  device=None):
-    """Run a plan from :func:`plan_full_layer` on a float-pair state, one
-    fused-kernel call per pass.
+    """Run a plan on a float-pair state: one fused-kernel call per
+    :class:`KernelPass`, one rotation copy per plane for each
+    :class:`Rotation`.
 
     ``kinds[i]`` is the i-th gate's kind ("U", "CNOT", "CU" or "D2");
     ``gate_mats[i]`` its packed (2, 2, 2) matrix (numpy). ``im=None`` runs
     every pass in the real-plane mode; ``re=None`` (with ``im=None``)
-    starts the FIRST pass from |0...0> on ``device``."""
+    starts from |0...0> on ``device``: the first pass generates it, or, when
+    the plan starts with a rotation, the fused kernel's init writes it
+    first. Positions are physical index bits: after a rotation they name
+    the bits the rotation moved the qubits to."""
     for item in plan:
+        if isinstance(item, Rotation):
+            if re is None:
+                re = fused_sv.apply_fused_layer(
+                    None, None, (), np.zeros((0, 2, 2, 2), np.float32),
+                    num_qubits=n, device=device)[0]
+            # no injected data dependency as in JAX: eager torch already
+            # runs the two copies one after the other
+            re = rotate_region(re, n, item.shift)
+            if im is not None:
+                im = rotate_region(im, n, item.shift)
+            continue
         idx = list(item.gate_idx)
         flags = tuple(real_flags[i] for i in idx) \
             if real_flags is not None else None

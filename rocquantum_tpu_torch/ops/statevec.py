@@ -95,3 +95,25 @@ def swap_index_bits(state: torch.Tensor, q1: int, q2: int) -> torch.Tensor:
     desc = [max(q1, q2), min(q1, q2)]
     view = state.reshape(exposed_view_dims(n, desc))
     return view.transpose(1, 3).reshape(-1)
+
+
+def permute_index_bits(state: torch.Tensor, dsts: Sequence[int],
+                       srcs: Sequence[int]) -> torch.Tensor:
+    """Composed multi-bit relabel: new index bit ``dsts[i]`` takes the
+    value of old index bit ``srcs[i]`` (``dsts`` and ``srcs`` are the same
+    set). One view transpose, one copy, where the equivalent chain of
+    :func:`swap_index_bits` makes one copy per swap."""
+    dsts = tuple(int(d) for d in dsts)
+    srcs = tuple(int(s) for s in srcs)
+    if dsts == srcs:
+        return state
+    if sorted(dsts) != sorted(srcs):
+        raise ValueError(f"permutation mismatch: {dsts} vs {srcs}")
+    n = num_qubits_of(state)
+    touched = sorted(set(dsts), reverse=True)
+    dims = exposed_view_dims(n, touched)
+    axis_of = {b: 2 * j + 1 for j, b in enumerate(touched)}
+    perm = list(range(len(dims)))
+    for d, s in zip(dsts, srcs):
+        perm[axis_of[d]] = axis_of[s]
+    return state.reshape(dims).permute(perm).reshape(state.shape)

@@ -1,5 +1,6 @@
-"""The CUDA fused-layer kernels (f32 and df64) on the card, against their
-plain-torch versions.
+"""The CUDA kernels on the card against their plain-torch versions: the
+fused-layer kernels (f32 and df64), the index-bit rotation copy and the
+two tensor-core region dots.
 
 Marked ``gpu``: these tests need a CUDA device and skip without one. This
 file imports no jax, so on a machine without JAX it runs on its own:
@@ -15,7 +16,8 @@ import torch
 
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir, qft_ir
-from rocquantum_tpu_torch.ops import df64, fused_df64, fused_sv
+from rocquantum_tpu_torch.ops import (df64, fused_df64, fused_sv, region_dot,
+                                      relabel, rotate)
 
 pytestmark = pytest.mark.gpu
 
@@ -133,6 +135,81 @@ def test_df64_wrapper_rejects_noncontiguous_plane(cuda):
         fused_df64.apply_fused_layer_df64(
             rh, torch.zeros_like(rh), None, None, [("U", 0)],
             np.zeros((1, 2, 2, 4), np.float32), real_flags=[True])
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n", [8, 12, 19])
+def test_rotation_kernel_matches_reference(cuda, n, batch):
+    """Every shift of the region [7, n), bitwise (the kernel is a copy)."""
+    x = torch.randn(batch, 1 << n, device=cuda)
+    for shift in range(n - rotate.ROT_LO + 1):
+        want = rotate.rotate_bits_down(x, n, shift)
+        before = rotate.LAUNCHES
+        got = rotate.rotate_region(x, n, shift)
+        torch.cuda.synchronize()
+        moved = shift % (n - rotate.ROT_LO) != 0
+        assert rotate.LAUNCHES == before + moved
+        assert torch.equal(got, want), (n, batch, shift)
+
+
+def test_rotation_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    with pytest.raises(ValueError):
+        rotate.rotate_region(torch.zeros(1 << 13, device=cuda)[1:], 12, 1)
+    with pytest.raises(ValueError):
+        rotate.rotate_region(torch.zeros(1 << 12, dtype=torch.float64,
+                                         device=cuda), 12, 1)
+
+
+def test_execute_plan_with_rotations_on_the_card_matches_cpu(cuda):
+    """A hand-made plan of passes and Rotations from |0...0> (init on the
+    card, rotations through the kernel) lands on the CPU run's state."""
+    n = 17
+    kinds = ["U"] * 6 + ["CNOT"]
+    rng = np.random.default_rng(4)
+    gm = _pack_f32([np.array([[np.cos(t), -np.sin(t)], [np.sin(t),
+                                                       np.cos(t)]])
+                    for t in rng.normal(size=len(kinds))])
+    plan = [relabel.KernelPass((0, 1, 2), ((0,), (8,), (9,)), (16,)),
+            relabel.Rotation(2),
+            relabel.KernelPass((3, 4, 5, 6), ((7,), (9,), (3,), (9, 8))),
+            relabel.Rotation(8)]
+    flags = [True] * len(kinds)
+    before = (rotate.LAUNCHES, fused_sv.INIT_LAUNCHES)
+    got, _ = relabel.execute_plan(None, None, plan, gm, n, kinds, flags,
+                                  device=cuda)
+    torch.cuda.synchronize()
+    assert (rotate.LAUNCHES, fused_sv.INIT_LAUNCHES) == (before[0] + 2,
+                                                         before[1] + 1)
+    want, _ = relabel.execute_plan(None, None, plan, gm, n, kinds, flags,
+                                   device="cpu")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("rows", [32, 128, 4096])
+def test_region_dots_match_float64(cuda, rows):
+    """Both 3xTF32 tensor-core dots against float64 products on the card:
+    within 1e-5 of the largest output (float32-grade)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(rows)
+    x = torch.randn(rows, region_dot.COLS, generator=gen, device=cuda)
+    m = torch.randn(region_dot.LANE, region_dot.LANE, generator=gen,
+                    device=cuda)
+    a = torch.randn(region_dot.TILE, region_dot.TILE, generator=gen,
+                    device=cuda)
+    for fn, want, count in (
+            (lambda y: region_dot.lane_dot(y, m),
+             region_dot.lane_dot_reference(x.double(), m.double()),
+             "LANE_LAUNCHES"),
+            (lambda y: region_dot.row_dot(a, y),
+             region_dot.row_dot_reference(a.double(), x.double()),
+             "ROW_LAUNCHES")):
+        before = getattr(region_dot, count)
+        y = x.clone()
+        got = fn(y)
+        torch.cuda.synchronize()
+        assert got is y and getattr(region_dot, count) == before + 1
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (count, err)
 
 
 @contextlib.contextmanager

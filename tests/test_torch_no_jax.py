@@ -63,6 +63,42 @@ print("ok")
 """
 
 
+# the relabel layer and the region dots, through their plain versions
+_RELABEL_AND_DOTS = _BLOCK_JAX + r"""
+import numpy as np
+import torch
+from rocquantum_tpu_torch.compiler import interpreter
+from rocquantum_tpu_torch.compiler.ir import GateOp
+from rocquantum_tpu_torch.ops import region_dot, relabel, rotate, statevec
+
+n = 12
+gm = np.zeros((2, 2, 2, 2), np.float32)
+gm[:, 0, 0, 0] = gm[:, 1, 1, 0] = 1.0  # identities
+plan = [relabel.Rotation(2),
+        relabel.KernelPass(gate_idx=(0, 1), positions=((0,), (9,))),
+        relabel.Rotation(3)]
+re, im = relabel.execute_plan(None, None, plan, gm, n, ["U", "U"],
+                              real_flags=[True, True], device="cpu")
+assert im is None and float(re[0]) == 1.0 and float(re.abs().sum()) == 1.0
+x = torch.arange(1 << n, dtype=torch.float32)
+y = relabel.rotate_region(x, n, 3)
+assert torch.equal(relabel.rotate_region(y, n, 2), x)
+psi = torch.randn(1 << 6, dtype=torch.complex64)
+op = GateOp("PERMUTE_BITS", (1, 4), (4, 1))
+assert torch.equal(interpreter.apply_op(psi, op),
+                   statevec.swap_index_bits(psi, 1, 4))
+x = torch.randn(32, 4096)
+m = torch.eye(128)
+assert torch.equal(region_dot.lane_dot(x.clone(), m), x)
+assert torch.equal(region_dot.row_dot(torch.eye(32), x.clone()), x)
+assert rotate.LAUNCHES == region_dot.LANE_LAUNCHES == 0
+assert region_dot.ROW_LAUNCHES == 0
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -78,6 +114,10 @@ def test_bell_circuit_runs_with_jax_blocked():
 
 def test_df64_circuit_runs_with_jax_blocked():
     _run_blocked(_DF64)
+
+
+def test_relabel_and_region_dots_run_with_jax_blocked():
+    _run_blocked(_RELABEL_AND_DOTS)
 
 
 def _assert_imports_no_jax(path):
