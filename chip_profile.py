@@ -17,9 +17,16 @@ Two measurements, each printed with the card's name and power limit:
      by top-level operator.
   2. How a fused-layer pass's time grows with its gate count: K RY gates
      per pass (CUDA events over 10 passes), with no pair bits and with
-     three, on the real and the complex carry, for the f32 kernel at
-     n = 29 and the df64 kernel at n = 26, beside a device copy of the same
-     planes.
+     three (and, on the f32 kernel's real plane, five), on the real and the
+     complex carry, for the f32 kernel at n = 29 and the df64 kernel at
+     n = 26, beside a device copy of the same planes.
+  3. The f32 kernel's two pass geometries on the main path: the n = 29,
+     8-layer ring ansatz planned with at most 3 and at most 5 pair bits a
+     pass, every pass of each plan run on one real plane (CUDA events, in
+     turns 3, 5, 5, 3): passes, ms per pass and ms for all of them; then
+     each pass alone, grouped by tile size, exchanges and gates.
+  4. The kept plan with its exchanging passes at 32, 64 and 128
+     amplitudes a thread.
 
 Needs CUDA; without it, exits non-zero and prints nothing else.
 """
@@ -34,6 +41,8 @@ F32_N = 29
 DF64_N = 26
 SCAN_K = (1, 4, 16, 64)
 REPS = 10
+# f32 pass planner geometries compared: (reach, max_pairs)
+GEOMETRIES = ((10, 3), (10, 5), (7, 5))
 
 
 def smi_line():
@@ -108,7 +117,7 @@ def profile_request(label, rq, n, sim):
     torch.cuda.empty_cache()
 
 
-def scan(label, n, layer, make_planes, gates):
+def scan(label, n, layer, make_planes, gates, wide=()):
     """ms per pass of ``layer(planes, specs)`` for K gates from
     ``gates(K, pair_bits, complex)`` (RY on the real carry, random unitaries
     on the complex one), beside a device copy of the same planes."""
@@ -129,7 +138,7 @@ def scan(label, n, layer, make_planes, gates):
     for cplx in (False, True):
         planes = make_planes(cplx)
         carry = "complex" if cplx else "real"
-        for pair_bits in ((), (11, 17, 25)):
+        for pair_bits in ((), (11, 17, 25)) + (() if cplx else wide):
             row = []
             for k in (SCAN_K[::2] if cplx else SCAN_K):
                 specs = gates(k, pair_bits, cplx)
@@ -211,10 +220,143 @@ def main():
             *planes, specs, fused_df64.pack_gate_mats_df64(mats),
             pair_bits=pair_bits, real_flags=flags)
 
-    scan("f32", F32_N, f32_layer, f32_planes, gates)
+    scan("f32", F32_N, f32_layer, f32_planes, gates,
+         wide=((11, 13, 17, 21, 25),))
     scan("df64", DF64_N, df64_layer, df64_planes, gates)
+    compare_geometries(dev)
+    compare_exchange_regs(dev)
     print(f"card: {smi_line()}")
     return 0
+
+
+def compare_exchange_regs(dev):
+    """Section 4: the kept plan of the n = 29 ansatz with the passes that
+    need exchanges run at 32, 64 and 128 amplitudes a thread
+    (fused_sv.EXCHANGE_REG_BITS 5, 6, 7), in turns 5, 6, 7, 7, 6, 5."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir
+    from rocquantum_tpu_torch.ops import fused_sv
+
+    n = F32_N
+    (block,) = interpreter.plan_items(
+        hardware_efficient_ansatz_ir(n, LAYERS).ops, n)
+    kinds, supports, gm, flags = interpreter.pallas_block_specs(
+        block, np.random.default_rng(5).normal(size=n * LAYERS))
+    passes = [(tuple((kinds[i],) + tuple(p)
+                     for i, p in zip(item.gate_idx, item.positions)),
+               gm[list(item.gate_idx)], item.pair_bits,
+               [flags[i] for i in item.gate_idx])
+              for item in interpreter.kernel_plan(n, kinds, supports)]
+    state = torch.full((1 << n,), 2.0 ** (-n / 2), device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    kept = fused_sv.EXCHANGE_REG_BITS
+    times = {}
+    try:
+        for regs in (5, 6, 7, 7, 6, 5):
+            fused_sv.EXCHANGE_REG_BITS = regs
+            fused_sv.pass_schedule.cache_clear()
+            for specs, g, pb, fl in passes:  # warm-up
+                fused_sv.apply_fused_layer(state, None, specs, g,
+                                           pair_bits=pb, real_flags=fl)
+            torch.cuda.synchronize()
+            start.record()
+            for specs, g, pb, fl in passes:
+                fused_sv.apply_fused_layer(state, None, specs, g,
+                                           pair_bits=pb, real_flags=fl)
+            stop.record()
+            torch.cuda.synchronize()
+            times.setdefault(regs, []).append(start.elapsed_time(stop))
+    finally:
+        fused_sv.EXCHANGE_REG_BITS = kept
+        fused_sv.pass_schedule.cache_clear()
+    for regs, ts in sorted(times.items()):
+        print(f"[f32 exchanges n={n}] {len(passes)} passes, those with "
+              f"exchanges at {1 << regs} amplitudes a thread: all passes "
+              f"{', '.join(f'{t:.3f}' for t in ts)} ms")
+    del state
+    torch.cuda.empty_cache()
+
+
+def compare_geometries(dev):
+    """Section 3: the n = 29 ansatz's passes planned with 3 and with 5 pair
+    bits a pass, each plan run whole on one real plane."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir
+    from rocquantum_tpu_torch.ops import fused_sv
+
+    n = F32_N
+    (block,) = interpreter.plan_items(
+        hardware_efficient_ansatz_ir(n, LAYERS).ops, n)
+    kinds, supports, gm, flags = interpreter.pallas_block_specs(
+        block, np.random.default_rng(5).normal(size=n * LAYERS))
+    runs = {}
+    for geometry in GEOMETRIES:
+        plan = interpreter._block_plan(n, tuple(kinds),
+                                       tuple(tuple(s) for s in supports),
+                                       *geometry, fused_sv.window_bits(n))
+        runs[geometry] = [(tuple((kinds[i],) + tuple(p)
+                              for i, p in zip(item.gate_idx, item.positions)),
+                        gm[list(item.gate_idx)], item.pair_bits,
+                        [flags[i] for i in item.gate_idx]) for item in plan]
+    state = torch.full((1 << n,), 2.0 ** (-n / 2), device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def run_all(passes):
+        for specs, g, pb, fl in passes:
+            fused_sv.apply_fused_layer(state, None, specs, g, pair_bits=pb,
+                                       real_flags=fl)
+
+    times = {geometry: [] for geometry in GEOMETRIES}
+    for geometry in GEOMETRIES + GEOMETRIES[::-1]:
+        run_all(runs[geometry])  # warm-up (and the schedules' host cache)
+        torch.cuda.synchronize()
+        start.record()
+        run_all(runs[geometry])
+        stop.record()
+        torch.cuda.synchronize()
+        times[geometry].append(start.elapsed_time(stop))
+    for geometry in GEOMETRIES:
+        reach, pairs = geometry
+        count = len(runs[geometry])
+        best = min(times[geometry])
+        print(f"[f32 geometry n={n}] reach {reach}, at most {pairs} pair "
+              f"bits: {count} passes ({count / LAYERS:.3f} per layer), all "
+              f"passes {', '.join(f'{t:.3f}' for t in times[geometry])} ms, "
+              f"{best / count:.4f} ms per pass")
+        # every pass alone, grouped by its launch's shape
+        groups = {}
+        for specs, g, pb, fl in runs[geometry]:
+            (launch, *more) = fused_sv.pass_schedule(
+                n, fused_sv._normalize_specs(specs))
+            key = (launch.tile_bits, launch.reg_bits, launch.swaps,
+                   len(more))
+            one = [(specs, g, pb, fl)]
+            run_all(one)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(3):
+                run_all(one)
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop) / 3
+            groups.setdefault(key, []).append((ms, len(specs)))
+        for (t, r, swaps, extra), rows in sorted(groups.items()):
+            total = sum(ms for ms, _ in rows)
+            gates = sum(k for _, k in rows) / len(rows)
+            print(f"[f32 geometry n={n}]   ({reach}, {pairs}): {len(rows)} "
+                  f"passes "
+                  f"of {1 << t} amplitudes a tile, {1 << r} a thread, "
+                  f"{swaps} exchanges, {extra + 1} launch(es), "
+                  f"{gates:.1f} gates: {total / len(rows):.4f} ms each, "
+                  f"{total:.3f} ms in all")
+    del state
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -12,16 +12,17 @@ Phases:
      rotate_bits.cu, region_dot.cu) from the checkout, one nvcc per source,
      all started together;
   3. kernel against its plain-torch version on the card: seeded random
-     passes at n = 22 over every gate kind, {no pair bits, one, three},
-     {real plane, complex} and the start-from-|0...0> mode, then every pass
-     of one ansatz layer at n = 29 (the main path's shapes), timed;
+     passes at n = 22 over every gate kind, {no pair bits, one, three,
+     five (real plane only)}, {real plane, complex} and the
+     start-from-|0...0> mode, then every pass of one ansatz layer at
+     n = 29 (the main path's shapes), timed;
   4. the slice: Circuit(29) with 8 RY-column + CNOT-ring layers answering
      3 energy requests (transverse-field Ising Hamiltonian), held against
      the same requests run with the plain layer function; QFT of a basis
      state at n = 26 against its closed form; GHZ at n = 29, sampled;
-  5. times: kernel and plain ms per pass, passes per layer, gates/s; the
-     kernel's start-from-|0...0> mode at n = 29 beside its plain version,
-     torch.zeros and its write bound;
+  5. times: kernel and plain ms per pass, passes per layer, exchanges per
+     pass, gates/s; the |0...0> fill kernel at n = 29 beside its plain
+     version, torch.zeros and its write bound;
   6. the df64 kernel (csrc/fused_df64.cu) against its plain-torch version
      on the card: seeded random passes at n = 22 over every gate kind,
      {no pair bits, one, three}, {real carry, complex carry}, then every
@@ -289,8 +290,11 @@ def main():
     worst = 0.0
     n = RANDOM_N
     w = fused_sv.window_bits(n)
-    for pair_bits in ((), (15,), (11, 17, 21)):
+    for pair_bits in ((), (15,), (11, 17, 21), (11, 13, 17, 19, 21)):
         for mode in ("real", "complex", "zero"):
+            if len(pair_bits) > fused_sv.max_pairs(complex_carry=True) \
+                    and mode == "complex":
+                continue  # five pair bits: the real plane only
             specs, mats = random_specs(rng, n, w, pair_bits, 48,
                                        real=mode != "complex")
             gm = pack_f32(mats)
@@ -328,7 +332,7 @@ def main():
     params = rng.normal(size=n).astype(np.float32)
     kinds, supports, gm, flags = interpreter.pallas_block_specs(
         block, interpreter._host_params(params))
-    plan = interpreter._block_plan(n, tuple(kinds), tuple(supports))
+    plan = interpreter.kernel_plan(n, kinds, supports)
     passes = [(tuple((kinds[i],) + tuple(p)
                      for i, p in zip(item.gate_idx, item.positions)),
                gm[list(item.gate_idx)], item.pair_bits,
@@ -402,9 +406,9 @@ def main():
     zero_counts(fused_sv, fused_df64, rotate, region_dot)
     answers = [answer(theta) for theta in requests]
     launches = fused_sv.LAUNCHES
-    init_launches = fused_sv.INIT_LAUNCHES
+    init_launches = fused_sv.ZERO_LAUNCHES
     check(fused_df64.LAUNCHES == 0, "the f32 slice launched no df64 pass")
-    check(init_launches > 0, "each request started from the init launch")
+    check(init_launches > 0, "each request started from the fill launch")
     with plain_layers(fused_sv, "apply_fused_layer",
                       fused_sv.apply_fused_layer_reference):
         plain_answers = [answer(theta) for theta in requests]
@@ -465,6 +469,10 @@ def main():
                        if isinstance(item, PallasBlock))
     print(f"passes: one layer {len(passes)}, {ANSATZ_LAYERS} layers "
           f"{total_passes} ({total_passes / ANSATZ_LAYERS:.3f} per layer)")
+    schedules = [fused_sv.pass_schedule(n, fused_sv._normalize_specs(specs))
+                 for specs, _, _, _ in passes]
+    print("exchanges per pass of one layer (launches): " + ", ".join(
+        f"{sum(x.swaps for x in sch)} ({len(sch)})" for sch in schedules))
     print(f"per pass at n={n}, real plane (ms, kernel/plain in turns): "
           f"plain {plain_ms:.4f}, kernel {kernel_ms:.4f}, kernel "
           f"{kernel_ms_2:.4f}, plain {plain_ms_2:.4f}")
@@ -479,7 +487,8 @@ def main():
           f"({f32_bound_by})")
     init = init_timing(fused_sv, n, dev)
     init["launches"] = init_launches
-    print(f"init launches in the main-path run: {init_launches}")
+    gen_zero_timing(fused_sv, passes[0], n, dev)
+    print(f"fill launches in the main-path run: {init_launches}")
 
     df = df64_phases(rq, interpreter, PallasBlock,
                      hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
@@ -503,7 +512,7 @@ def main():
         "name": "fused_layer_init",
         "route": "cuda",
         "source": "rocquantum_tpu_torch/csrc/fused_sv.cu",
-        "replaces": "rocquantum_tpu/ops/pallas_sv.py:1622",
+        "replaces": "rocquantum_tpu/ops/pallas_sv.py:1667",
         **init,
     }, {
         "name": "fused_layer_df64",
@@ -593,7 +602,7 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     kinds, supports, gm, flags = interpreter.pallas_block_specs_df64(
         block, rng.normal(size=n))
     check(all(flags), "the ansatz layer is real")
-    plan = interpreter._block_plan(n, tuple(kinds), tuple(supports))
+    plan = interpreter.kernel_plan(n, kinds, supports, fused_df64)
     passes = [(tuple((kinds[i],) + tuple(p)
                      for i, p in zip(item.gate_idx, item.positions)),
                gm[list(item.gate_idx)], item.pair_bits,
@@ -713,7 +722,7 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
 
     # ---- df64 times -----------------------------------------------------
     full = ansatz_ir(n, ANSATZ_LAYERS)
-    total_passes = sum(interpreter.block_pass_count(item, n)
+    total_passes = sum(interpreter.block_pass_count(item, n, fused_df64)
                        for item in interpreter.plan_items(full.ops, n)
                        if isinstance(item, PallasBlock))
     print(f"df64 passes: one layer {len(passes)}, {ANSATZ_LAYERS} layers "
@@ -733,23 +742,19 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
 
 
 def init_timing(fused_sv, n, dev):
-    """The fused kernel's start-from-|0...0> mode (the JAX package's
-    _gen_zero_input and init_zero_state_tiled) on its own at n = 29:
-    bitwise against its plain version, timed beside it, beside one
-    torch.zeros call and beside its bound (one plane written once)."""
-    import numpy as np
+    """The |0...0> fill kernel (the JAX package's init_zero_state_tiled) on
+    its own at n = 29: bitwise against its plain version, timed beside it,
+    beside one torch.zeros call and beside its bound (one plane written
+    once)."""
     import torch
 
-    empty = np.zeros((0, 2, 2, 2), np.float32)
-
     def kernel():
-        return fused_sv.apply_fused_layer(None, None, (), empty,
-                                          num_qubits=n, device=dev)[0]
+        return fused_sv.init_zero(n, dev)
 
     def plain():
         return fused_sv._zero_plane(n, dev)
 
-    check(torch.equal(kernel(), plain()), "init kernel == plain |0...0>")
+    check(torch.equal(kernel(), plain()), "fill kernel == plain |0...0>")
     turns = time_turns(repeat(kernel), repeat(plain), 10, 10)
     library = min(timed(repeat(lambda: torch.zeros(1 << n, device=dev)), 10)
                   for _ in range(2))
@@ -762,6 +767,35 @@ def init_timing(fused_sv, n, dev):
     return {"max_abs_err": 0.0, "ms": min(turns[1], turns[2]),
             "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,
             "bound_by": "bytes", "library_ms": library}
+
+
+def gen_zero_timing(fused_sv, first_pass, n, dev):
+    """The fused kernel's start-from-|0...0> mode (the JAX package's
+    _gen_zero_input) on the first ansatz pass at n = 29, timed beside the
+    same pass reading a state and beside its bound (one plane written
+    once)."""
+    import torch
+
+    specs, g, pb, fl = first_pass
+    state = torch.full((1 << n,), 2.0 ** (-n / 2), device=dev)
+
+    def zero():
+        return fused_sv.apply_fused_layer(None, None, specs, g, pair_bits=pb,
+                                          real_flags=fl, num_qubits=n,
+                                          device=dev)
+
+    def loading():
+        return fused_sv.apply_fused_layer(state, None, specs, g, pair_bits=pb,
+                                          real_flags=fl)
+
+    turns = time_turns(repeat(zero), repeat(loading), 10, 10)
+    bound = (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"first ansatz pass at n={n} from |0...0> (ms, in turns): reading "
+          f"{turns[0]:.4f}, from |0...0> {turns[1]:.4f}, from |0...0> "
+          f"{turns[2]:.4f}, reading {turns[3]:.4f}; write bound {bound:.4f} "
+          f"(bytes)")
+    del state
+    torch.cuda.empty_cache()
 
 
 def rotation_plan(relabel, n, qubits, reach):
@@ -871,8 +905,9 @@ def rotation_phases(fused_sv, relabel, rotate, rng, gen, dev):
     zero_counts(fused_sv, rotate)
     b, ms_b = run(rot_plan)
     counts_b = (fused_sv.LAUNCHES, fused_sv.INIT_LAUNCHES, rotate.LAUNCHES)
-    check(counts_a[0] > 0 and counts_a[2] == 0, f"pair plan {counts_a}")
-    check(counts_b[0] > 0 and counts_b[2] > 0,
+    check(counts_a[0] > 0 and counts_a[1] == 1 and counts_a[2] == 0,
+          f"pair plan {counts_a}")
+    check(counts_b[0] > 0 and counts_b[1] == 1 and counts_b[2] > 0,
           f"the rotation plan launched both kernels: {counts_b}")
     err = max_err(a, b)
     idx = rng.integers(0, 1 << n, 4096)
@@ -886,7 +921,8 @@ def rotation_phases(fused_sv, relabel, rotate, rng, gen, dev):
     ms = [run(plan)[1] for plan in (pair_plan, rot_plan, rot_plan,
                                     pair_plan)]
     print(f"relabel path n={n}, one RY layer from |0...0>: pair plan "
-          f"{len(pair_plan)} passes, launches (fused, init, rotation) "
+          f"{len(pair_plan)} passes, launches (fused, from |0...0>, "
+          f"rotation) "
           f"{counts_a}; rotation plan {len(rot_plan) - rotations} passes + "
           f"{rotations} rotations, launches {counts_b}; ms (first runs "
           f"{ms_a:.2f}, {ms_b:.2f}; then in turns pair {ms[0]:.2f}, "

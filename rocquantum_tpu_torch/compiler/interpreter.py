@@ -326,21 +326,40 @@ def _classify_spec(op: GateOp):
 
 
 @functools.lru_cache(maxsize=1024)
-def _block_plan(n: int, kinds: tuple, supports: tuple):
-    """Kernel passes for one block's specs (structure only, cached)."""
-    reach = fused_sv.window_bits(n)
+def _block_plan(n: int, kinds: tuple, supports: tuple, reach: int,
+                max_pairs: int, window: int):
+    """Kernel passes for one block's specs (structure only, cached): the
+    low ``reach`` bits need no pairing and up to ``max_pairs`` bits above
+    them ride as pair bits; each pass names its pair bits from ``window``
+    up (the kernel's window: bits below it are local anyway)."""
     anchors = _spec_anchors(kinds, supports, reach)
     if all(q < reach for a in anchors for q in a):
         # unanchored bits resolve per block in the kernel: one pass
         return (relabel.KernelPass(tuple(range(len(kinds))), supports),)
-    return tuple(relabel.plan_full_layer(n, supports, reach,
-                                         pair_ok=n > reach, anchors=anchors))
+    return tuple(
+        relabel.KernelPass(p.gate_idx, p.positions,
+                           tuple(q for q in p.pair_bits if q >= window))
+        for p in relabel.plan_full_layer(n, supports, reach,
+                                         pair_ok=n > reach,
+                                         max_pairs=max_pairs,
+                                         anchors=anchors))
 
 
-def block_pass_count(block: PallasBlock, n: int) -> int:
-    """Planned kernel passes of one block on an n-qubit state."""
+def kernel_plan(n: int, kinds, supports, kernel=fused_sv,
+                complex_carry: bool = False):
+    """The passes of one block's specs on the fused kernel of module
+    ``kernel`` (ops/fused_sv.py or ops/fused_df64.py, each with its own
+    geometry) for a real or complex carry."""
+    reach, pairs = kernel.plan_geometry(n, complex_carry)
+    return _block_plan(n, tuple(kinds), tuple(tuple(s) for s in supports),
+                       reach, pairs, kernel.window_bits(n))
+
+
+def block_pass_count(block: PallasBlock, n: int, kernel=fused_sv) -> int:
+    """Planned kernel passes of one block on an n-qubit state (real
+    carry)."""
     kinds, supports = zip(*(_classify_spec(op) for op in block.ops))
-    return len(_block_plan(n, tuple(kinds), tuple(supports)))
+    return len(kernel_plan(n, kinds, supports, kernel))
 
 
 def _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
@@ -348,8 +367,8 @@ def _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
     """Run prepared gate specs through the fused kernel in planned passes.
     ``im=None`` is the real plane (all-real gates only); ``re=None`` starts
     the first pass from |0...0> on ``device``."""
-    plan = _block_plan(num_qubits, tuple(kinds),
-                       tuple(tuple(s) for s in supports))
+    plan = kernel_plan(num_qubits, kinds, supports,
+                       complex_carry=im is not None)
     return relabel.execute_plan(re, im, plan, gm, num_qubits, kinds=kinds,
                                 real_flags=real_flags, device=device)
 
@@ -371,9 +390,8 @@ def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
 def _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
                            num_qubits: int):
     """Run prepared df64 gate specs through the df64 kernel in planned
-    passes (the plan of the f32 kernel: both take the same local sets)."""
-    plan = _block_plan(num_qubits, tuple(kinds),
-                       tuple(tuple(s) for s in supports))
+    passes on the df64 kernel's own geometry."""
+    plan = kernel_plan(num_qubits, kinds, supports, fused_df64)
     for item in plan:
         idx = list(item.gate_idx)
         specs = tuple((kinds[i],) + tuple(p)
@@ -490,12 +508,8 @@ def _fused_matrix(block: FusedBlock, params) -> np.ndarray:
 
 
 def init_real(n: int, device=None) -> torch.Tensor:
-    """|0...0> as one real float32 plane. On CUDA the fused kernel writes
-    it (its start-from-|0...0> mode with an empty gate list)."""
-    re, _ = fused_sv.apply_fused_layer(
-        None, None, (), np.zeros((0, 2, 2, 2), np.float32), num_qubits=n,
-        device=device)
-    return re
+    """|0...0> as one real float32 plane (on CUDA, the fill kernel)."""
+    return fused_sv.init_zero(n, device)
 
 
 def init_pair(n: int, device=None):

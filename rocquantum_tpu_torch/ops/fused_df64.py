@@ -11,26 +11,29 @@ on CPU tensors it runs :func:`apply_fused_layer_df64_reference`, the
 plain-torch version the tests and ``chip_smoke.py`` hold the kernel
 against.
 
-Specs and geometry are those of ops/fused_sv.py (kinds U, CNOT, CU, D2; the
-low :data:`fused_sv.W_BITS` bits plus up to :data:`fused_sv.MAX_PAIRS` pair
-bits per pass), so the same pass planner serves both. ``gate_mats`` is
-``(K, 2, 2, 4)`` float32 ``[k, row, col, (re_hi, re_lo, im_hi, im_lo)]``
-(:func:`pack_gate_mats_df64`).
+Specs are those of ops/fused_sv.py (kinds U, CNOT, CU, D2), and the kernel
+has its own geometry: the low :data:`W_BITS` bits plus up to
+:data:`MAX_PAIRS` pair bits per pass (2^13 amplitudes per block in shared
+memory), which the pass planner takes as ``reach`` and ``max_pairs``.
+``gate_mats`` is ``(K, 2, 2, 4)`` float32 ``[k, row, col, (re_hi, re_lo,
+im_hi, im_lo)]`` (:func:`pack_gate_mats_df64`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 from .df64 import df_add, df_mul, df_neg
-from .fused_sv import (_check_specs, _device_table, _normalize_specs,
-                       window_bits)
+from .fused_sv import _KIND_CODES, _check_specs, _normalize_specs
 from .statevec import exposed_view_dims, num_qubits_of
+
+W_BITS = 10     # low, contiguous local index bits of every pass
+MAX_PAIRS = 3   # extra local bits above the window (csrc: 13 local bits)
 
 # kernel launches in this process (one per pass that reached the GPU)
 LAUNCHES = 0
@@ -49,6 +52,17 @@ def build() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         _LIB = lib
     return _LIB
+
+
+def window_bits(n: int) -> int:
+    """Low local bits of a pass on an n-qubit state (the planner's reach)."""
+    return min(W_BITS, n)
+
+
+def plan_geometry(n: int, complex_carry: bool) -> Tuple[int, int]:
+    """The pass planner's (reach, max_pairs) for this kernel: its window
+    and pair bits, the same on either carry."""
+    return window_bits(n), MAX_PAIRS
 
 
 def pack_gate_mats_df64(mats: List[np.ndarray]) -> np.ndarray:
@@ -81,7 +95,8 @@ def _check_layer(planes, specs, gate_mats, pair_bits, real_flags):
     if tuple(np.shape(gate_mats)) != (len(specs), 2, 2, 4):
         raise ValueError(f"gate_mats must have shape ({len(specs)}, 2, 2, 4)"
                          f", got {tuple(np.shape(gate_mats))}")
-    pair_bits = _check_specs(n, specs, pair_bits)
+    pair_bits = _check_specs(n, specs, pair_bits, window_bits(n),
+                             MAX_PAIRS)
     return n, specs, pair_bits, real_flags
 
 
@@ -131,6 +146,26 @@ def apply_fused_layer_df64(rh: torch.Tensor, rl: torch.Tensor,
                            f"{err} (n={n}, pair_bits={pair_bits}, "
                            f"{k} gates)")
     return planes
+
+
+def _device_table(specs, gate_mats, real_flags, device) -> torch.Tensor:
+    """One int32 device buffer holding the spec table (K, 3) at word 0, the
+    real flags (K,) at word 3K and the gate matrices (K, 16) as float32
+    bits at word 4K: a single asynchronous copy from pinned memory per
+    pass."""
+    k = len(specs)
+    if isinstance(gate_mats, torch.Tensor):
+        gate_mats = gate_mats.detach().cpu().numpy()
+    mats = np.ascontiguousarray(gate_mats, np.float32).reshape(-1)
+    buf = np.zeros(max(4 * k + mats.size, 1), np.int32)
+    for i, spec in enumerate(specs):
+        buf[3 * i] = _KIND_CODES[spec[0]]
+        buf[3 * i + 1] = spec[1]
+        buf[3 * i + 2] = spec[2] if len(spec) > 2 else -1
+    buf[3 * k:4 * k] = np.asarray(real_flags, np.int32)
+    buf[4 * k:4 * k + mats.size] = mats.view(np.int32)
+    host = torch.from_numpy(buf).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def apply_fused_layer_df64_reference(rh, rl, ih, il, specs, gate_mats,

@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence, Tuple
 
-import numpy as np
 
 from . import fused_sv
 from .rotate import ROT_LO, rotate_bits_down, rotate_region  # noqa: F401
@@ -105,7 +104,8 @@ def plan_full_layer(n: int, supports: Sequence[Tuple[int, ...]], reach: int,
     items covering all n qubits.
 
     ``reach`` is the number of low window bits; up to ``max_pairs``
-    (default ``fused_sv.MAX_PAIRS``; 0 when ``pair_ok`` is false) extra bits
+    (default the f32 kernel's real-plane limit, ``fused_sv.MAX_PAIRS``; 0
+    when ``pair_ok`` is false) extra bits
     >= reach per pass ride as pair bits. Gates with disjoint supports
     commute (may share or swap passes); a gate never overtakes an earlier
     gate touching any of its qubits.
@@ -165,15 +165,12 @@ def execute_plan(re, im, plan: Sequence[object], gate_mats, n: int,
     ``gate_mats[i]`` its packed (2, 2, 2) matrix (numpy). ``im=None`` runs
     every pass in the real-plane mode; ``re=None`` (with ``im=None``)
     starts from |0...0> on ``device``: the first pass generates it, or, when
-    the plan starts with a rotation, the fused kernel's init writes it
-    first. Positions are physical index bits: after a rotation they name
+    the plan starts with a rotation, the fill kernel writes it first. Positions are physical index bits: after a rotation they name
     the bits the rotation moved the qubits to."""
     for item in plan:
         if isinstance(item, Rotation):
             if re is None:
-                re = fused_sv.apply_fused_layer(
-                    None, None, (), np.zeros((0, 2, 2, 2), np.float32),
-                    num_qubits=n, device=device)[0]
+                re = fused_sv.init_zero(n, device)
             # no injected data dependency as in JAX: eager torch already
             # runs the two copies one after the other
             re = rotate_region(re, n, item.shift)

@@ -93,12 +93,85 @@ def test_kernel_matches_reference(cuda, mode, pair_bits):
         torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=0)
 
 
+# (n, pair bits, mode): the smallest kernel states, one tile (n = 15, 16)
+# and more, chip_smoke's n = 22 pair sets, and five pair bits (2^15
+# amplitudes a tile) on the real plane, the only carry that takes them
+PATH_PASSES = [(n, pairs, mode)
+               for n, pairs in [(15, ()), (15, (11, 14)), (16, (15,)),
+                                (16, (10, 13, 15)), (22, ()), (22, (15,)),
+                                (22, (11, 17, 21)),
+                                (15, (10, 11, 12, 13, 14)),
+                                (16, (10, 11, 13, 14, 15)),
+                                (22, (11, 13, 17, 19, 21))]
+               for mode in ("real", "complex", "zero")
+               if len(pairs) <= fused_sv.MAX_PAIRS_COMPLEX
+               or mode != "complex"]
+
+
+@pytest.mark.parametrize("n,pair_bits,mode", PATH_PASSES)
+def test_kernel_matches_reference_at_path_sizes(cuda, n, pair_bits, mode):
+    """48 random gates of every kind (targets anywhere in the local set,
+    controls and diagonal bits anywhere) per pass, as chip_smoke runs
+    them."""
+    rng = np.random.default_rng(n * 11 + len(pair_bits) * 3 + len(mode))
+    specs, mats, flags = _random_pass(rng, n, pair_bits, mode != "complex",
+                                      count=48)
+    gm = _pack_f32(mats)
+    v = rng.normal(size=(2, 1 << n))
+    v /= np.linalg.norm(v)
+    re = im = None
+    if mode != "zero":
+        re = torch.from_numpy(v[0].astype(np.float32)).to(cuda)
+    if mode == "complex":
+        im = torch.from_numpy(v[1].astype(np.float32)).to(cuda)
+    want = fused_sv.apply_fused_layer_reference(
+        re, im, specs, gm, real_flags=flags, num_qubits=n, device=cuda)
+    launches = len(fused_sv.pass_schedule(
+        n, fused_sv._normalize_specs(specs), mode == "complex"))
+    before = (fused_sv.LAUNCHES, fused_sv.INIT_LAUNCHES)
+    got = fused_sv.apply_fused_layer(
+        None if re is None else re.clone(), None if im is None else im.clone(),
+        specs, gm, pair_bits=pair_bits, real_flags=flags, num_qubits=n,
+        device=cuda)
+    torch.cuda.synchronize()
+    assert (fused_sv.LAUNCHES, fused_sv.INIT_LAUNCHES) == (
+        before[0] + launches, before[1] + (mode == "zero"))
+    torch.testing.assert_close(got[0], want[0], atol=1e-6, rtol=0)
+    if im is not None:
+        torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 15, 29])
+def test_init_zero_matches_plain_bitwise(cuda, n):
+    before = fused_sv.ZERO_LAUNCHES
+    got = fused_sv.init_zero(n, cuda)
+    torch.cuda.synchronize()
+    assert fused_sv.ZERO_LAUNCHES == before + 1
+    assert torch.equal(got, fused_sv._zero_plane(n, cuda))
+
+
 def test_wrapper_rejects_noncontiguous_plane(cuda):
     re = torch.zeros(1 << 16, device=cuda)[::2]
     with pytest.raises(ValueError):
         fused_sv.apply_fused_layer(re, None, [("U", 0)],
                                    np.zeros((1, 2, 2, 2), np.float32),
                                    real_flags=[True])
+    unaligned = torch.zeros((1 << 16) + 1, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        fused_sv.apply_fused_layer(unaligned, None, [("U", 0)],
+                                   np.zeros((1, 2, 2, 2), np.float32),
+                                   real_flags=[True])
+
+
+def test_wrapper_rejects_more_pair_bits_than_the_geometry(cuda):
+    re = torch.zeros(1 << 18, device=cuda)
+    pairs = tuple(range(10, 11 + fused_sv.MAX_PAIRS))
+    before = fused_sv.LAUNCHES
+    with pytest.raises(ValueError):
+        fused_sv.apply_fused_layer(re, None, [("U", 10)],
+                                   np.zeros((1, 2, 2, 2), np.float32),
+                                   pair_bits=pairs, real_flags=[True])
+    assert fused_sv.LAUNCHES == before
 
 
 @pytest.mark.parametrize("mode", ["real", "complex"])
@@ -181,6 +254,24 @@ def test_execute_plan_with_rotations_on_the_card_matches_cpu(cuda):
     assert (rotate.LAUNCHES, fused_sv.INIT_LAUNCHES) == (before[0] + 2,
                                                          before[1] + 1)
     want, _ = relabel.execute_plan(None, None, plan, gm, n, kinds, flags,
+                                   device="cpu")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+def test_rotation_first_plan_starts_from_the_fill(cuda):
+    """A plan that starts with a Rotation from re=None writes |0...0> with
+    the fill kernel first."""
+    n = 17
+    gm = _pack_f32([np.array([[0.6, -0.8], [0.8, 0.6]])])
+    plan = [relabel.Rotation(3), relabel.KernelPass((0,), ((9,),)),
+            relabel.Rotation(n - rotate.ROT_LO - 3)]
+    before = (fused_sv.ZERO_LAUNCHES, fused_sv.INIT_LAUNCHES)
+    got, _ = relabel.execute_plan(None, None, plan, gm, n, ["U"], [True],
+                                  device=cuda)
+    torch.cuda.synchronize()
+    assert (fused_sv.ZERO_LAUNCHES, fused_sv.INIT_LAUNCHES) == (
+        before[0] + 1, before[1])
+    want, _ = relabel.execute_plan(None, None, plan, gm, n, ["U"], [True],
                                    device="cpu")
     torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
 

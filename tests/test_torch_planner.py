@@ -122,15 +122,19 @@ def test_native_and_python_planners_agree(seed):
 
 
 def test_plans_respect_kernel_geometry_and_order():
-    """Every pass of the port's plan fits the kernel (anchored qubits in
-    the window or the pass's <= MAX_PAIRS pair bits), and every gate is
-    scheduled once, never overtaking an earlier gate on a shared qubit."""
+    """Every pass of the port's real-plane plan fits the f32 kernel's
+    planner geometry (anchored qubits below the reach or among the pass's
+    <= MAX_PAIRS pair bits, so a tile of at most 2^12 amplitudes), and
+    every gate is scheduled once, never overtaking an earlier gate on a
+    shared qubit."""
     rng = np.random.default_rng(7)
     n = 26
     kinds, supports = _random_layer(rng, n, 120)
-    reach = fused_sv.window_bits(n)
+    reach, limit = fused_sv.plan_geometry(n, complex_carry=False)
+    assert limit == fused_sv.MAX_PAIRS
     anchors = port_interp._spec_anchors(kinds, supports, reach)
-    plan = port_relabel.plan_full_layer(n, supports, reach, anchors=anchors)
+    plan = port_relabel.plan_full_layer(n, supports, reach, max_pairs=limit,
+                                        anchors=anchors)
     order = [i for p in plan for i in p.gate_idx]
     assert sorted(order) == list(range(len(supports)))
     position = {g: k for k, g in enumerate(order)}
@@ -139,9 +143,31 @@ def test_plans_respect_kernel_geometry_and_order():
             if set(supports[i]) & set(supports[j]):
                 assert position[j] < position[i]
     for p in plan:
-        assert len(p.pair_bits) <= fused_sv.MAX_PAIRS
+        assert len(p.pair_bits) <= limit
         for i in p.gate_idx:
             assert all(q < reach or q in p.pair_bits for q in anchors[i])
+        specs = fused_sv._normalize_specs(
+            [(kinds[i],) + tuple(s) for i, s in zip(p.gate_idx, p.positions)])
+        for launch in fused_sv.pass_schedule(n, specs):
+            assert launch.tile_bits <= fused_sv.ROW_BITS + limit
+
+
+def test_ring_ansatz_pass_counts_per_kernel():
+    """Each fused kernel plans with its own geometry: the f32 kernel's
+    real plane (reach 7, 5 pair bits) takes 36 passes for the n = 29,
+    8-layer ring ansatz; the df64 kernel keeps the 10-bit window and 3 pair
+    bits, 43 passes at n = 26."""
+    from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir
+    from rocquantum_tpu_torch.ops import fused_df64
+    counts = {}
+    for n, kernel in ((29, fused_sv), (26, fused_df64)):
+        items = port_interp.plan_items(
+            hardware_efficient_ansatz_ir(n, 8).ops, n)
+        counts[n] = sum(port_interp.block_pass_count(item, n, kernel)
+                        for item in items
+                        if isinstance(item, port_passes.PallasBlock))
+    assert counts == {29: 36, 26: 43}
+    assert fused_df64.plan_geometry(26, False) == (10, 3)
 
 
 def test_planner_rejects_unschedulable_gate():
