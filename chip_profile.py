@@ -27,6 +27,12 @@ Two measurements, each printed with the card's name and power limit:
      each pass alone, grouped by tile size, exchanges and gates.
   4. The kept plan with its exchanging passes at 32, 64 and 128
      amplitudes a thread.
+  5. The df64 kernel's passes on its main path: the n = 26, 8-layer ring
+     ansatz on the real carry as the planner plans it, every pass run in
+     turn (CUDA events) beside the host's wall time to issue them, the
+     host's CPU time per launch without the launch (check, cached
+     schedule, parameter block), and each pass alone, grouped by tile size
+     and exchanges.
 
 Needs CUDA; without it, exits non-zero and prints nothing else.
 """
@@ -225,14 +231,18 @@ def main():
     scan("df64", DF64_N, df64_layer, df64_planes, gates)
     compare_geometries(dev)
     compare_exchange_regs(dev)
+    df64_plan_passes(dev)
     print(f"card: {smi_line()}")
     return 0
 
 
 def compare_exchange_regs(dev):
     """Section 4: the kept plan of the n = 29 ansatz with the passes that
-    need exchanges run at 32, 64 and 128 amplitudes a thread
-    (fused_sv.EXCHANGE_REG_BITS 5, 6, 7), in turns 5, 6, 7, 7, 6, 5."""
+    need exchanges run at 32, 64 and 128 amplitudes a thread (the
+    ``exchange_reg_bits`` of fused_sv.F32_RULE 5, 6, 7), in turns 5, 6, 7,
+    7, 6, 5."""
+    import dataclasses
+
     import numpy as np
     import torch
     from rocquantum_tpu_torch.compiler import interpreter
@@ -252,12 +262,12 @@ def compare_exchange_regs(dev):
     state = torch.full((1 << n,), 2.0 ** (-n / 2), device=dev)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    kept = fused_sv.EXCHANGE_REG_BITS
+    kept = fused_sv.F32_RULE
     times = {}
     try:
         for regs in (5, 6, 7, 7, 6, 5):
-            fused_sv.EXCHANGE_REG_BITS = regs
-            fused_sv.pass_schedule.cache_clear()
+            fused_sv.F32_RULE = dataclasses.replace(kept,
+                                                    exchange_reg_bits=regs)
             for specs, g, pb, fl in passes:  # warm-up
                 fused_sv.apply_fused_layer(state, None, specs, g,
                                            pair_bits=pb, real_flags=fl)
@@ -270,13 +280,104 @@ def compare_exchange_regs(dev):
             torch.cuda.synchronize()
             times.setdefault(regs, []).append(start.elapsed_time(stop))
     finally:
-        fused_sv.EXCHANGE_REG_BITS = kept
-        fused_sv.pass_schedule.cache_clear()
+        fused_sv.F32_RULE = kept
     for regs, ts in sorted(times.items()):
         print(f"[f32 exchanges n={n}] {len(passes)} passes, those with "
               f"exchanges at {1 << regs} amplitudes a thread: all passes "
               f"{', '.join(f'{t:.3f}' for t in ts)} ms")
     del state
+    torch.cuda.empty_cache()
+
+
+def df64_plan_passes(dev):
+    """Section 5: the n = 26 ansatz's df64 plan (the planner's geometry) on
+    one real carry: every pass run in turn, device time (CUDA events) beside
+    the host's wall time to issue them; the host's part of each launch
+    alone (check, schedule, parameter block); then each pass alone, grouped
+    by tile size and exchanges."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir
+    from rocquantum_tpu_torch.ops import df64, fused_df64
+
+    n = DF64_N
+    (block,) = interpreter.plan_items(
+        hardware_efficient_ansatz_ir(n, LAYERS).ops, n)
+    kinds, supports, gm, flags = interpreter.pallas_block_specs_df64(
+        block, np.random.default_rng(5).normal(size=n * LAYERS))
+    plan = interpreter.kernel_plan(n, kinds, supports, fused_df64)
+    passes = [(tuple((kinds[i],) + tuple(p)
+                     for i, p in zip(item.gate_idx, item.positions)),
+               gm[list(item.gate_idx)], item.pair_bits,
+               [flags[i] for i in item.gate_idx]) for item in plan]
+    re = torch.full((1 << n,), 2.0 ** (-n / 2), dtype=torch.float64,
+                    device=dev)
+    planes = df64.state_from_pair_f64(re, None)
+    del re
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def run_all(passes):
+        for specs, g, pb, fl in passes:
+            fused_df64.apply_fused_layer_df64(*planes, specs, g, pair_bits=pb,
+                                              real_flags=fl)
+
+    def prepare_all():
+        count = 0
+        for specs, g, pb, fl in passes:
+            m, sp, _, rf = fused_df64._check_layer(planes, specs, g, pb, fl)
+            for launch in fused_df64.pass_schedule(m, sp, False):
+                fused_df64.launch_params(m, launch, g, rf)
+                count += 1
+        return count
+
+    run_all(passes)  # warm-up (and the schedules' cache)
+    torch.cuda.synchronize()
+    launches = prepare_all()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        start.record()
+        run_all(passes)
+        stop.record()
+        issued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        print(f"[df64 plan n={n}] {len(passes)} passes ({launches} launches, "
+              f"{len(passes) / LAYERS:.3f} per layer): device "
+              f"{start.elapsed_time(stop):.3f} ms, host wall to issue them "
+              f"{issued * 1e3:.3f} ms")
+    t0 = time.process_time()
+    reps = 20
+    for _ in range(reps):
+        prepare_all()
+    host = (time.process_time() - t0) / (reps * launches)
+    print(f"[df64 plan n={n}] host CPU time per launch to check, schedule "
+          f"(cached) and pack its parameter block, no launch: "
+          f"{host * 1e3:.4f} ms")
+    groups = {}
+    for specs, g, pb, fl in passes:
+        (launch, *more) = fused_df64.pass_schedule(
+            n, fused_df64._normalize_specs(specs), False)
+        one = [(specs, g, pb, fl)]
+        run_all(one)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(3):
+            run_all(one)
+        stop.record()
+        torch.cuda.synchronize()
+        key = (launch.tile_bits, launch.swaps, len(more))
+        groups.setdefault(key, []).append(
+            (start.elapsed_time(stop) / 3,
+             sum(sp[0] in ("U", "CU") for sp in specs)))
+    for (t, swaps, extra), rows in sorted(groups.items()):
+        total = sum(ms for ms, _ in rows)
+        real = sum(k for _, k in rows) / len(rows)
+        print(f"[df64 plan n={n}]   {len(rows)} passes of {1 << t} "
+              f"amplitudes a tile, {swaps} exchanges, {extra + 1} "
+              f"launch(es), {real:.1f} RY: {total / len(rows):.4f} ms each, "
+              f"{total:.3f} ms in all")
+    del planes
     torch.cuda.empty_cache()
 
 

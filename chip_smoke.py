@@ -22,12 +22,15 @@ Phases:
      state at n = 26 against its closed form; GHZ at n = 29, sampled;
   5. times: kernel and plain ms per pass, passes per layer, exchanges per
      pass, gates/s; the |0...0> fill kernel at n = 29 beside its plain
-     version, torch.zeros and its write bound;
+     version, torch.zeros and its write bound; the first pass from
+     |0...0> beside the same pass reading a state and its plain version;
   6. the df64 kernel (csrc/fused_df64.cu) against its plain-torch version
      on the card: seeded random passes at n = 22 over every gate kind,
      {no pair bits, one, three}, {real carry, complex carry}, then every
      pass of one ansatz layer at n = 26 (the df64 main path's shapes),
-     timed;
+     timed beside its bound in FP32 instructions; the QFT's kernel block
+     at n = 26 on the complex carry: its widest pass against the plain
+     version, every pass timed;
   7. the double-precision slice: set_precision("df64"), Circuit(26) with
      8 RY-column + CNOT-ring layers answering 3 TFIM energy requests, held
      against one request run with the plain df64 layer function and one
@@ -84,9 +87,12 @@ PROBE_TOL = 1e-5      # region dots: max abs error / max|y| vs float64
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
-# and operations / the peak of the units that do them
+# and operations / the peak of the units that do them. FP32 work is counted
+# in instructions: 132 SMs x 128 lanes x 1.98 GHz (half the 67 TFLOP/s,
+# which counts an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP32_INSTR_PER_S = 33.5e12
 TF32_OPS_PER_S = 495e12
 
 
@@ -145,25 +151,33 @@ def pack_f32(mats):
 
 
 def gate_ops(kind, real_mat, complex_state, df):
-    """FP32 operations per amplitude of the state for one gate of a pass
-    (an FMA counts two). A product is 1 operation in f32 and a df_mul 10
-    (two_prod 3, cross terms 3, sums 4); a sum is 1 and a df_add 20 (two
-    two_sums 12, two quick_two_sums 6, 2 adds). A 2x2 row costs two
-    products and a sum per output component, a diagonal one product; a
+    """FP32 instructions per amplitude of the state for one gate of a pass.
+    An FMA is one instruction: the pipe issues one instruction a lane a
+    clock, FP32_INSTR_PER_S on the H100 SXM (the 67 TFLOP/s of the data
+    sheet counts an FMA as two operations). In f32 a product is one
+    instruction and a product added to a sum one (an FMA). In df64 a
+    df_mul is 9 (two_prod 2, cross terms 3, their sum 1, quick_two_sum 3)
+    and a df_add 20 (two two_sums 12, two sums 2, two quick_two_sums 6):
+    plain adds and products, whose only FMA is two_prod's. A 2x2 row is
+    two products and a sum per output component, a diagonal one product; a
     complex product is two real products and a sum per component. CU acts
     on the half of the amplitudes where its control is 1."""
     if kind == "CNOT":
         return 0.0
-    mul, add = (10, 20) if df else (1, 1)
-    cmul = 2 * mul + add             # one component of a complex product
+    if df:
+        mul, add = 9, 20
+        row, cmul = 2 * mul + add, 2 * mul + add
+        crow = 2 * cmul + add
+    else:
+        mul, row, cmul, crow = 1, 2, 2, 4
     if kind == "D2":
         per = mul if not complex_state else 2 * mul if real_mat else 2 * cmul
     elif not complex_state:
-        per = 2 * mul + add
+        per = row
     elif real_mat:
-        per = 2 * (2 * mul + add)
+        per = 2 * row
     else:
-        per = 2 * (2 * cmul + add)
+        per = 2 * crow
     return per * (0.5 if kind == "CU" else 1.0)
 
 
@@ -171,18 +185,31 @@ def bound_ms(n, passes, planes, complex_state, df):
     """(mean least time per pass in ms, "bytes" or "operations") for
     passes ``[(specs, real_flags), ...]`` over ``planes`` float32 planes
     of 2^n amplitudes: each plane read once and written once, against the
-    operations of :func:`gate_ops`. ``bound_by`` names the larger of the
+    instructions of :func:`gate_ops`. ``bound_by`` names the larger of the
     two sums over the passes."""
     byte_s = op_s = total = 0.0
     for specs, flags in passes:
         b = (1 << n) * 4 * planes * 2 / HBM_BYTES_PER_S
         o = (1 << n) * sum(gate_ops(sp[0], fl, complex_state, df)
-                           for sp, fl in zip(specs, flags)) / FP32_OPS_PER_S
+                           for sp, fl in zip(specs, flags)) / FP32_INSTR_PER_S
         byte_s += b
         op_s += o
         total += max(b, o)
     return (total * 1e3 / len(passes),
             "operations" if op_s > byte_s else "bytes")
+
+
+def df64_bound_before(n, passes):
+    """The df64 real-carry bound per pass as this script counted it before
+    (40 operations a real gate, 20 a CU, at 67e12/s): printed once beside
+    the instruction count."""
+    total = 0.0
+    for specs, _ in passes:
+        ops = sum({"CNOT": 0, "CU": 20, "D2": 10}.get(sp[0], 40)
+                  for sp in specs)
+        total += max((1 << n) * 16 / HBM_BYTES_PER_S,
+                     (1 << n) * ops / FP32_OPS_PER_S)
+    return total * 1e3 / len(passes)
 
 
 def max_err(a, b):
@@ -638,8 +665,13 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
                        10)
     bound, bound_by = bound_ms(n, [(specs, fl) for specs, _, _, fl in passes],
                                2, complex_state=False, df=True)
+    bound_before = df64_bound_before(
+        n, [(specs, fl) for specs, _, _, fl in passes])
     del state
     torch.cuda.empty_cache()
+    qft_pass = df64_qft_pass(interpreter, PallasBlock, qft_ir, df64,
+                             fused_df64, promoted_err, gen, dev)
+    worst = max(worst, qft_pass)
 
     # ---- 7. double-precision slice --------------------------------------
     zz = {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}
@@ -730,7 +762,9 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     print(f"df64 per pass at n={n}, real carry (ms, kernel/plain in turns): "
           f"plain {turns[0]:.4f}, kernel {turns[1]:.4f}, kernel "
           f"{turns[2]:.4f}, plain {turns[3]:.4f}; bound {bound:.4f} "
-          f"({bound_by})")
+          f"({bound_by}; FP32 instructions at {FP32_INSTR_PER_S:.3g}/s), "
+          f"{bound_before:.4f} as counted before (40 operations a real "
+          f"gate at {FP32_OPS_PER_S:.3g}/s)")
     best = min(t for _, _, t in answers)
     print(f"df64 ansatz: {gates} gates per request, best flush "
           f"{best * 1e3:.2f} ms = {gates / best:.1f} gates/s")
@@ -739,6 +773,63 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     return {"launches": launches, "max_abs_err": worst,
             "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
+def df64_qft_pass(interpreter, PallasBlock, qft_ir, df64, fused_df64,
+                  promoted_err, gen, dev):
+    """The df64 kernel on the complex carry at the QFT's n = 26 shapes: its
+    kernel block planned on the complex carry, the widest pass held against
+    the plain version, every pass timed (CUDA events) beside its bound.
+    Returns the error."""
+    import numpy as np
+    import torch
+
+    n = DF64_N
+    (block,) = [item for item in interpreter.plan_items(qft_ir(n).ops, n)
+                if isinstance(item, PallasBlock)]
+    kinds, supports, gm, flags = interpreter.pallas_block_specs_df64(
+        block, None)
+    plan = interpreter.kernel_plan(n, kinds, supports, fused_df64)
+    v = torch.randn(2, 1 << n, generator=gen, dtype=torch.float64,
+                    device=dev)
+    v /= torch.linalg.vector_norm(v)
+    state = df64.state_from_pair_f64(v[0], v[1])
+    del v
+    rows = []
+    for item in plan:
+        idx = list(item.gate_idx)
+        specs = tuple((kinds[i],) + tuple(p)
+                      for i, p in zip(idx, item.positions))
+        fl = [flags[i] for i in idx]
+        rows.append((specs, gm[idx], item.pair_bits, fl))
+    specs, g, pb, fl = max(rows, key=lambda r: len(r[0]))
+    want = fused_df64.apply_fused_layer_df64_reference(*state, specs, g,
+                                                       real_flags=fl)
+    got = fused_df64.apply_fused_layer_df64(
+        *(p.clone() for p in state), specs, g, pair_bits=pb, real_flags=fl)
+    torch.cuda.synchronize()
+    err = promoted_err(got, want)
+    del want, got
+    print(f"df64 kernel vs plain n={n}, complex carry, the QFT's widest "
+          f"pass ({len(specs)} gates, pairs {pb}): max abs err {err:.3e}")
+    check(err <= DF64_KERNEL_TOL, f"df64 QFT pass: {err}")
+    for specs, g, pb, fl in rows:
+        ms = timed(repeat(lambda: fused_df64.apply_fused_layer_df64(
+            *state, specs, g, pair_bits=pb, real_flags=fl)), 10)
+        (launch, *more) = fused_df64.pass_schedule(
+            n, fused_df64._normalize_specs(specs), True)
+        bound, by = bound_ms(n, [(specs, fl)], 4, complex_state=True,
+                             df=True)
+        print(f"df64 QFT pass at n={n}, complex carry: {len(specs)} gates "
+              f"({sum(not f for f in fl)} complex), tile 2^"
+              f"{launch.tile_bits}, {launch.swaps} exchanges, "
+              f"{len(more) + 1} launch(es): {ms:.4f} ms; bound {bound:.4f} "
+              f"({by})")
+    check(all(bool(torch.isfinite(p).all()) for p in state),
+          "the QFT passes stay finite")
+    del state
+    torch.cuda.empty_cache()
+    return err
 
 
 def init_timing(fused_sv, n, dev):
@@ -788,12 +879,17 @@ def gen_zero_timing(fused_sv, first_pass, n, dev):
         return fused_sv.apply_fused_layer(state, None, specs, g, pair_bits=pb,
                                           real_flags=fl)
 
+    def plain():
+        return fused_sv.apply_fused_layer_reference(
+            None, None, specs, g, real_flags=fl, num_qubits=n, device=dev)
+
     turns = time_turns(repeat(zero), repeat(loading), 10, 10)
+    plain_ms = min(timed(repeat(plain), 1) for _ in range(2))
     bound = (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
     print(f"first ansatz pass at n={n} from |0...0> (ms, in turns): reading "
           f"{turns[0]:.4f}, from |0...0> {turns[1]:.4f}, from |0...0> "
-          f"{turns[2]:.4f}, reading {turns[3]:.4f}; write bound {bound:.4f} "
-          f"(bytes)")
+          f"{turns[2]:.4f}, reading {turns[3]:.4f}; plain version from "
+          f"|0...0> {plain_ms:.4f}; write bound {bound:.4f} (bytes)")
     del state
     torch.cuda.empty_cache()
 

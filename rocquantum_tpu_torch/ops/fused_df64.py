@@ -11,12 +11,15 @@ on CPU tensors it runs :func:`apply_fused_layer_df64_reference`, the
 plain-torch version the tests and ``chip_smoke.py`` hold the kernel
 against.
 
-Specs are those of ops/fused_sv.py (kinds U, CNOT, CU, D2), and the kernel
-has its own geometry: the low :data:`W_BITS` bits plus up to
-:data:`MAX_PAIRS` pair bits per pass (2^13 amplitudes per block in shared
-memory), which the pass planner takes as ``reach`` and ``max_pairs``.
-``gate_mats`` is ``(K, 2, 2, 4)`` float32 ``[k, row, col, (re_hi, re_lo,
-im_hi, im_lo)]`` (:func:`pack_gate_mats_df64`).
+Specs are those of ops/fused_sv.py (kinds U, CNOT, CU, D2), and so is the
+way a pass runs: the f32 kernel's scheduler (``fused_sv.pass_schedule``
+with :data:`RULE`) plans tiles, register and thread layouts and exchanges,
+and the records go to the kernel by value, each entry as ``(re_hi, re_lo,
+im_hi, im_lo)``. Which specs a pass may take, on either carry: targets in
+the low :data:`W_BITS` bits or in at most :data:`MAX_PAIRS` pair bits above
+them, so a tile holds at most 2^13 amplitudes; the pass planner takes the
+same (:func:`plan_geometry`). ``gate_mats`` is ``(K, 2, 2, 4)`` float32
+``[k, row, col, (re_hi, re_lo, im_hi, im_lo)]`` (:func:`pack_gate_mats_df64`).
 """
 
 from __future__ import annotations
@@ -27,18 +30,44 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, fused_sv
 from .df64 import df_add, df_mul, df_neg
-from .fused_sv import _KIND_CODES, _check_specs, _normalize_specs
+from .fused_sv import _check_specs, _normalize_specs
 from .statevec import exposed_view_dims, num_qubits_of
 
-W_BITS = 10     # low, contiguous local index bits of every pass
-MAX_PAIRS = 3   # extra local bits above the window (csrc: 13 local bits)
+W_BITS = fused_sv.W_BITS        # low local bits any pass may target
+MAX_PAIRS = 3                   # targeted bits above the window, either carry
+REG_BITS = 5                    # amplitudes a thread: 2^5 on the real carry
+REG_BITS_COMPLEX = 4            # and 2^4 on the complex one
+MAX_OPS = 96                    # gate and swap records of one launch
+MAX_LAYOUTS = 8
 
-# kernel launches in this process (one per pass that reached the GPU)
+_OP_DTYPE = np.dtype([("kind", np.uint8), ("real", np.uint8),
+                      ("t", np.uint8), ("pad", np.uint8), ("a", np.int16),
+                      ("b", np.int16), ("m", np.float32, 16)])
+_PARAMS_DTYPE = np.dtype([
+    ("n", np.int32), ("w", np.int32), ("tile_bits", np.int32),
+    ("reg_bits", np.int32), ("num_ops", np.int32), ("pad", np.int32),
+    ("lbits", np.int8, 16), ("layouts", np.int8, (MAX_LAYOUTS, 16)),
+    ("ops", _OP_DTYPE, MAX_OPS)])
+assert _OP_DTYPE.itemsize == 72 and _PARAMS_DTYPE.itemsize == 7080
+
+# kernel launches in this process (a pass split into several launches
+# counts each)
 LAUNCHES = 0
 
 _LIB = None
+
+
+def reg_bits(tile_bits: int, complex_carry: bool) -> int:
+    """Register bits per thread of a launch, whatever its tile: hi and lo
+    of 2^5 amplitudes (64 registers) on the real carry, of 2^4 complex ones
+    on the complex carry."""
+    return REG_BITS_COMPLEX if complex_carry else REG_BITS
+
+
+# R is fixed, so a launch with exchanges is never re-planned at fewer
+RULE = fused_sv.Rule(reg_bits, None, MAX_OPS, MAX_LAYOUTS)
 
 
 def build() -> ctypes.CDLL:
@@ -46,22 +75,24 @@ def build() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load_cuda("fused_df64")
-        fn = lib.rocq_fused_layer_df64
+        fn = lib.rocq_fused_pass_df64
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6
         _LIB = lib
     return _LIB
 
 
 def window_bits(n: int) -> int:
-    """Low local bits of a pass on an n-qubit state (the planner's reach)."""
+    """Low local bits of a pass on an n-qubit state."""
     return min(W_BITS, n)
 
 
 def plan_geometry(n: int, complex_carry: bool) -> Tuple[int, int]:
-    """The pass planner's (reach, max_pairs) for this kernel: its window
-    and pair bits, the same on either carry."""
+    """The pass planner's (reach, max_pairs) for this kernel, the same on
+    either carry: the window and :data:`MAX_PAIRS` pair bits. (On the real
+    carry, reach 7 and 5 pair bits plan 35 passes for the n = 26, 8-layer
+    ring ansatz instead of 43, but of 2^12-amplitude tiles that need
+    exchanges; the 43 ran faster, PERF.md.)"""
     return window_bits(n), MAX_PAIRS
 
 
@@ -95,9 +126,22 @@ def _check_layer(planes, specs, gate_mats, pair_bits, real_flags):
     if tuple(np.shape(gate_mats)) != (len(specs), 2, 2, 4):
         raise ValueError(f"gate_mats must have shape ({len(specs)}, 2, 2, 4)"
                          f", got {tuple(np.shape(gate_mats))}")
-    pair_bits = _check_specs(n, specs, pair_bits, window_bits(n),
-                             MAX_PAIRS)
+    pair_bits = _check_specs(n, specs, pair_bits, window_bits(n), MAX_PAIRS)
     return n, specs, pair_bits, real_flags
+
+
+def pass_schedule(n: int, specs, complex_carry: bool):
+    """The kernel launches of one pass (normalized ``specs`` that
+    :func:`_check_layer` accepted): the f32 kernel's scheduler within this
+    kernel's :data:`RULE`."""
+    return fused_sv.pass_schedule(n, specs, complex_carry, RULE)
+
+
+def launch_params(n: int, launch, gate_mats, real_flags) -> np.ndarray:
+    """The kernel's parameter block for one launch (a numpy scalar of
+    ``_PARAMS_DTYPE``, laid out as ``PassParams`` in csrc/fused_df64.cu)."""
+    return fused_sv.pack_launch(n, launch, gate_mats, real_flags,
+                                _PARAMS_DTYPE)
 
 
 def apply_fused_layer_df64(rh: torch.Tensor, rl: torch.Tensor,
@@ -120,52 +164,25 @@ def apply_fused_layer_df64(rh: torch.Tensor, rl: torch.Tensor,
         return apply_fused_layer_df64_reference(
             rh, rl, ih, il, specs, gate_mats, real_flags=real_flags)
     for name, plane in zip(("rh", "rl", "ih", "il"), planes):
-        if plane is None:
-            continue
-        if plane.dtype != torch.float32 or not plane.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor")
-        if plane.device != device or plane.numel() != 1 << n:
-            raise ValueError(f"{name} must be a ({1 << n},) plane on "
-                             f"{device}")
+        if plane is not None:
+            fused_sv._check_plane(name, plane, n, device)
     if not specs:
         return planes
-    table = _device_table(specs, gate_mats, real_flags, device)
-    k = len(specs)
-    addr = table.data_ptr()
-    bits = (ctypes.c_int * max(len(pair_bits), 1))(*pair_bits)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    lib = build()
-    global LAUNCHES
-    LAUNCHES += 1
-    err = lib.rocq_fused_layer_df64(
-        *(None if p is None else p.data_ptr() for p in planes),
-        addr, addr + 16 * k, addr + 12 * k, k, n, window_bits(n),
-        len(pair_bits), bits, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_df64 kernel launch failed: cudaError_t "
-                           f"{err} (n={n}, pair_bits={pair_bits}, "
-                           f"{k} gates)")
-    return planes
-
-
-def _device_table(specs, gate_mats, real_flags, device) -> torch.Tensor:
-    """One int32 device buffer holding the spec table (K, 3) at word 0, the
-    real flags (K,) at word 3K and the gate matrices (K, 16) as float32
-    bits at word 4K: a single asynchronous copy from pinned memory per
-    pass."""
-    k = len(specs)
     if isinstance(gate_mats, torch.Tensor):
         gate_mats = gate_mats.detach().cpu().numpy()
-    mats = np.ascontiguousarray(gate_mats, np.float32).reshape(-1)
-    buf = np.zeros(max(4 * k + mats.size, 1), np.int32)
-    for i, spec in enumerate(specs):
-        buf[3 * i] = _KIND_CODES[spec[0]]
-        buf[3 * i + 1] = spec[1]
-        buf[3 * i + 2] = spec[2] if len(spec) > 2 else -1
-    buf[3 * k:4 * k] = np.asarray(real_flags, np.int32)
-    buf[4 * k:4 * k + mats.size] = mats.view(np.int32)
-    host = torch.from_numpy(buf).pin_memory()
-    return host.to(device, non_blocking=True)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = build()
+    ptrs = [None if p is None else p.data_ptr() for p in planes]
+    global LAUNCHES
+    for launch in pass_schedule(n, specs, ih is not None):
+        params = launch_params(n, launch, gate_mats, real_flags)
+        LAUNCHES += 1
+        err = lib.rocq_fused_pass_df64(*ptrs, params.ctypes.data, stream)
+        if err != 0:
+            raise RuntimeError(f"fused_df64 kernel launch failed: cudaError_t "
+                               f"{err} (n={n}, pair_bits={pair_bits}, "
+                               f"{len(specs)} gates)")
+    return planes
 
 
 def apply_fused_layer_df64_reference(rh, rl, ih, il, specs, gate_mats,

@@ -46,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -385,37 +385,56 @@ class _Scheduler:
         return (kind, i, t, a, SRC_NONE)
 
 
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """What one launch of a fused kernel holds, for the scheduler:
+    ``reg_bits(tile_bits, complex_carry)`` register bits a thread,
+    ``exchange_reg_bits`` the register bits of a launch that needs
+    exchanges (when fewer; None: never fewer), and the records and layouts
+    of one parameter block."""
+    reg_bits: Callable[[int, bool], int]
+    exchange_reg_bits: Optional[int]
+    max_ops: int
+    max_layouts: int
+
+
+F32_RULE = Rule(reg_bits, EXCHANGE_REG_BITS, MAX_OPS, MAX_LAYOUTS)
+
+
 @functools.lru_cache(maxsize=4096)
 def pass_schedule(n: int, specs: Tuple[tuple, ...],
-                  complex_carry: bool = False) -> Tuple[Launch, ...]:
+                  complex_carry: bool = False,
+                  rule: Rule = F32_RULE) -> Tuple[Launch, ...]:
     """The kernel launches of one pass on the real plane or on re+im
     (structure only: normalized ``specs`` that :func:`_check_specs`
-    accepted). Usually one; a pass whose records or layouts exceed one
-    launch's room is split, in list order, into several."""
+    accepted), within ``rule`` (this module's kernel by default).
+    Usually one; a pass whose records or layouts exceed one launch's room
+    is split, in list order, into several."""
     if n < MIN_TILE_BITS:
         raise ValueError(f"the fused kernel needs n >= {MIN_TILE_BITS}, got "
                          f"n={n}")
-    return _schedule_split(specs, complex_carry, 0)
+    return _schedule_split(specs, complex_carry, 0, rule)
 
 
-def _schedule_split(specs, complex_carry: bool,
-                    offset: int) -> Tuple[Launch, ...]:
+def _schedule_split(specs, complex_carry: bool, offset: int,
+                    rule: Rule) -> Tuple[Launch, ...]:
     lbits = _local_bits(specs)
-    regs = reg_bits(len(lbits), complex_carry)
+    regs = rule.reg_bits(len(lbits), complex_carry)
     layouts, program = _Scheduler(specs, lbits, regs).run()
-    if regs > EXCHANGE_REG_BITS and len(lbits) <= 13 and any(
-            op[0] == SWAP for op in program):
+    if (rule.exchange_reg_bits is not None
+            and regs > rule.exchange_reg_bits and len(lbits) <= 13
+            and any(op[0] == SWAP for op in program)):
         # a pass with exchanges has many targets: fewer amplitudes a thread
         # keep each gate's code short and more warps on an SM
         layouts, program = _Scheduler(specs, lbits,
-                                      EXCHANGE_REG_BITS).run()
-    if len(specs) > 1 and (len(program) > MAX_OPS
-                           or len(layouts) > MAX_LAYOUTS):
+                                      rule.exchange_reg_bits).run()
+    if len(specs) > 1 and (len(program) > rule.max_ops
+                           or len(layouts) > rule.max_layouts):
         half = len(specs) // 2
-        return (_schedule_split(specs[:half], complex_carry, offset)
+        return (_schedule_split(specs[:half], complex_carry, offset, rule)
                 + _schedule_split(specs[half:], complex_carry,
-                                  offset + half))
-    if len(program) > MAX_OPS or len(layouts) > MAX_LAYOUTS:
+                                  offset + half, rule))
+    if len(program) > rule.max_ops or len(layouts) > rule.max_layouts:
         raise AssertionError("one gate does not fit one launch")
     program = tuple((k, s + offset if s >= 0 else s, t, a, b)
                     for k, s, t, a, b in program)
@@ -475,11 +494,16 @@ def swap_banks(lanes_from, lanes_to, tile_bits: int) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=4096)
-def _packed(n: int, launch: Launch):
-    """The launch's parameter block without matrices and real flags, and
+def _packed(n: int, launch: Launch, dtype: np.dtype = _PARAMS_DTYPE):
+    """The launch's parameter block of ``dtype`` (this module's or the df64
+    kernel's: the same header, layouts and record fields, with ``m``
+    holding 2 or 4 floats an entry) without matrices and real flags, and
     where those go: (template, op rows, spec index per row, matrix gather
     index per row)."""
-    params = np.zeros((), _PARAMS_DTYPE)
+    op_dtype = dtype.fields["ops"][0].base
+    width = op_dtype.fields["m"][0].shape[0]  # floats of the 4 entries
+    entry = width // 4
+    params = np.zeros((), dtype)
     params["n"] = n
     params["w"] = ROW_BITS
     params["tile_bits"] = launch.tile_bits
@@ -490,8 +514,10 @@ def _packed(n: int, launch: Launch):
         params["layouts"][k, :launch.tile_bits] = lay.reg + lay.thread
     ops = params["ops"]
     rows, spec_idx, gather = [], [], []
-    plain = np.arange(8)
-    folded = np.array([0, 1, 0, 1, 6, 7, 6, 7])  # D2(q, q): m[x][x] at e=2x
+    plain = np.arange(width)
+    # D2(q, q): m[x][x] at entry 2x
+    folded = np.concatenate([np.arange(entry) + entry * e
+                             for e in (0, 0, 3, 3)])
     raw = params.reshape(1).view(np.uint8)
     cur = 0
     for r, (kind, spec, t, a, b) in enumerate(launch.program):
@@ -501,8 +527,8 @@ def _packed(n: int, launch: Launch):
             g = swap_banks(launch.layouts[cur].thread[:LANE_BITS],
                            launch.layouts[t].thread[:LANE_BITS],
                            launch.tile_bits)
-            at = _PARAMS_DTYPE.fields["ops"][1] + r * _OP_DTYPE.itemsize \
-                + _OP_DTYPE.fields["m"][1]
+            at = dtype.fields["ops"][1] + r * op_dtype.itemsize \
+                + op_dtype.fields["m"][1]
             raw[at:at + len(g)] = g
             cur = t
             continue
@@ -510,22 +536,31 @@ def _packed(n: int, launch: Launch):
         spec_idx.append(spec)
         pattern = folded if kind == _KIND_CODES["D2"] and b == SRC_NONE \
             else plain
-        gather.append(8 * spec + pattern)
+        gather.append(width * spec + pattern)
     return (params, np.asarray(rows, np.int64), np.asarray(spec_idx, np.int64),
-            np.asarray(gather, np.int64).reshape(-1, 8))
+            np.asarray(gather, np.int64).reshape(-1, width))
 
 
-def launch_params(n: int, launch: Launch, gate_mats, real_flags,
-                  gen_zero: bool) -> np.ndarray:
-    """The kernel's parameter block for one launch (a numpy scalar of
-    ``_PARAMS_DTYPE``, laid out as ``PassParams`` in csrc/fused_sv.cu)."""
-    template, rows, spec_idx, gather = _packed(n, launch)
+def pack_launch(n: int, launch: Launch, gate_mats, real_flags,
+                dtype: np.dtype = _PARAMS_DTYPE) -> np.ndarray:
+    """One launch's parameter block of ``dtype`` (a numpy scalar) with the
+    gate matrices (``(K, 2, 2, width / 4)`` float32) and real flags of the
+    pass's specs filled in."""
+    template, rows, spec_idx, gather = _packed(n, launch, dtype)
     params = template.copy()
     if len(rows):
         flat = np.ascontiguousarray(gate_mats, np.float32).reshape(-1)
         ops = params["ops"]
         ops["m"][rows] = flat[gather]
         ops["real"][rows] = np.asarray(real_flags, np.uint8)[spec_idx]
+    return params
+
+
+def launch_params(n: int, launch: Launch, gate_mats, real_flags,
+                  gen_zero: bool) -> np.ndarray:
+    """The kernel's parameter block for one launch (a numpy scalar of
+    ``_PARAMS_DTYPE``, laid out as ``PassParams`` in csrc/fused_sv.cu)."""
+    params = pack_launch(n, launch, gate_mats, real_flags)
     params["gen_zero"] = int(gen_zero)
     return params
 
@@ -557,7 +592,7 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
         if plane is None:
             continue
         _check_plane(name, plane, n, device)
-    launches = pass_schedule(n, specs, im is not None)
+    launches = pass_schedule(n, specs, im is not None, F32_RULE)
     gen_zero = re is None
     if gen_zero:
         re = torch.empty(1 << n, dtype=torch.float32, device=device)

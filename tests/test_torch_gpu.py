@@ -190,12 +190,53 @@ def test_df64_kernel_matches_reference(cuda, mode, pair_bits):
     planes = df64.state_from_pair_f64(re, im)
     want = fused_df64.apply_fused_layer_df64_reference(
         *planes, specs, gm, real_flags=flags)
+    launches = len(fused_df64.pass_schedule(
+        n, fused_df64._normalize_specs(specs), mode == "complex"))
     before = fused_df64.LAUNCHES
     got = fused_df64.apply_fused_layer_df64(
         *(None if p is None else p.clone() for p in planes), specs, gm,
         pair_bits=pair_bits, real_flags=flags)
     torch.cuda.synchronize()
-    assert fused_df64.LAUNCHES == before + 1
+    assert fused_df64.LAUNCHES == before + launches > before
+    for a, b in zip(df64.state_to_pair_f64(got),
+                    df64.state_to_pair_f64(want)):
+        if b is not None:
+            torch.testing.assert_close(a, b, atol=1e-13, rtol=0)
+
+
+# (n, pair bits, mode) for the df64 kernel: the smallest kernel states, a
+# handful of tiles (n = 15, 16) and more, and chip_smoke's n = 22 pair sets
+DF64_PATH_PASSES = [(n, pairs, mode)
+                    for n, pairs in [(15, ()), (15, (11, 14)), (16, (15,)),
+                                     (16, (10, 13, 15)), (22, ()),
+                                     (22, (15,)), (22, (11, 17, 21))]
+                    for mode in ("real", "complex")]
+
+
+@pytest.mark.parametrize("n,pair_bits,mode", DF64_PATH_PASSES)
+def test_df64_kernel_matches_reference_at_path_sizes(cuda, n, pair_bits,
+                                                     mode):
+    """48 random gates of every kind per pass on either carry, within 1e-13
+    of the plain version after promotion; every launch counted."""
+    rng = np.random.default_rng(n * 13 + len(pair_bits) * 3 + len(mode))
+    specs, mats, flags = _random_pass(rng, n, pair_bits, mode == "real",
+                                      count=48)
+    gm = fused_df64.pack_gate_mats_df64(mats)
+    v = rng.normal(size=(2, 1 << n))
+    v /= np.linalg.norm(v)
+    planes = df64.state_from_pair_f64(
+        torch.from_numpy(v[0]).to(cuda),
+        None if mode == "real" else torch.from_numpy(v[1]).to(cuda))
+    want = fused_df64.apply_fused_layer_df64_reference(
+        *planes, specs, gm, real_flags=flags)
+    launches = len(fused_df64.pass_schedule(
+        n, fused_df64._normalize_specs(specs), mode == "complex"))
+    before = fused_df64.LAUNCHES
+    got = fused_df64.apply_fused_layer_df64(
+        *(None if p is None else p.clone() for p in planes), specs, gm,
+        pair_bits=pair_bits, real_flags=flags)
+    torch.cuda.synchronize()
+    assert fused_df64.LAUNCHES == before + launches > before
     for a, b in zip(df64.state_to_pair_f64(got),
                     df64.state_to_pair_f64(want)):
         if b is not None:
@@ -208,6 +249,26 @@ def test_df64_wrapper_rejects_noncontiguous_plane(cuda):
         fused_df64.apply_fused_layer_df64(
             rh, torch.zeros_like(rh), None, None, [("U", 0)],
             np.zeros((1, 2, 2, 4), np.float32), real_flags=[True])
+
+
+@pytest.mark.parametrize("pairs,extra,im", [
+    ((10, 11, 12, 13), (0,), False),          # four pair bits, real carry
+    ((10, 11, 12, 13), (0,), True),           # four, complex carry
+    ((10, 11, 12), (13,), False),             # a target off the local set
+])
+def test_df64_wrapper_rejects_more_pair_bits_than_the_geometry(cuda, pairs,
+                                                               extra, im):
+    n = 18
+    rh = torch.zeros(1 << n, device=cuda)
+    ih = torch.zeros_like(rh) if im else None
+    specs = [("U", q) for q in pairs + extra]
+    before = fused_df64.LAUNCHES
+    with pytest.raises(ValueError):
+        fused_df64.apply_fused_layer_df64(
+            rh, torch.zeros_like(rh), ih, None if ih is None else ih.clone(),
+            specs, np.zeros((len(specs), 2, 2, 4), np.float32),
+            pair_bits=pairs, real_flags=[True] * len(specs))
+    assert fused_df64.LAUNCHES == before
 
 
 @pytest.mark.parametrize("batch", [1, 3])
