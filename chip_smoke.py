@@ -23,7 +23,9 @@ Phases:
   5. times: kernel and plain ms per pass, passes per layer, exchanges per
      pass, gates/s; the |0...0> fill kernel at n = 29 beside its plain
      version, torch.zeros and its write bound; the first pass from
-     |0...0> beside the same pass reading a state and its plain version;
+     |0...0> beside the same pass reading a state and its plain version,
+     each beside its own bound (writes or reads and writes, against the
+     pass's FP32 instructions);
   6. the df64 kernel (csrc/fused_df64.cu) against its plain-torch version
      on the card: seeded random passes at n = 22 over every gate kind,
      {no pair bits, one, three}, {real carry, complex carry}, then every
@@ -45,7 +47,9 @@ Phases:
      passes plus Rotations; the two states agree and match the closed form;
   10. the tensor-core probe (csrc/region_dot.cu): the 3xTF32 lane and row
      dots against float64 at R = 128 and R = 2^17, timed beside
-     torch.matmul in full float32 and the bound.
+     torch.matmul in full float32 and the bound; seven RY gates on qubits
+     0-6 at n = 29 as one composed lane dot and as one fused-kernel pass,
+     held against each other and timed in turns.
 
 Each path (phases 4, 7 and 9, and the probe's R = 2^17 call of each dot)
 runs with every launch count set to 0 just before it and read just after.
@@ -521,7 +525,7 @@ def main():
                      hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
                      fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
     rot = rotation_phases(fused_sv, relabel, rotate, rng, gen, dev)
-    lane, row = probe_phase(region_dot, gen, dev)
+    lane, row = probe_phase(region_dot, fused_sv, gen, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -863,8 +867,9 @@ def init_timing(fused_sv, n, dev):
 def gen_zero_timing(fused_sv, first_pass, n, dev):
     """The fused kernel's start-from-|0...0> mode (the JAX package's
     _gen_zero_input) on the first ansatz pass at n = 29, timed beside the
-    same pass reading a state and beside its bound (one plane written
-    once)."""
+    same pass reading a state, each beside its own bound: the plane written
+    once (from |0...0>) or read and written once (reading), against the
+    pass's FP32 instructions (:func:`gate_ops`)."""
     import torch
 
     specs, g, pb, fl = first_pass
@@ -885,11 +890,19 @@ def gen_zero_timing(fused_sv, first_pass, n, dev):
 
     turns = time_turns(repeat(zero), repeat(loading), 10, 10)
     plain_ms = min(timed(repeat(plain), 1) for _ in range(2))
-    bound = (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
+    op_ms = (1 << n) * sum(gate_ops(sp[0], f, False, False)
+                           for sp, f in zip(specs, fl)) / FP32_INSTR_PER_S * 1e3
+    write_ms = (1 << n) * 4 / HBM_BYTES_PER_S * 1e3
+    zero_bound = max(write_ms, op_ms)
+    load_bound, load_by = bound_ms(n, [(specs, fl)], 1, complex_state=False,
+                                   df=False)
     print(f"first ansatz pass at n={n} from |0...0> (ms, in turns): reading "
           f"{turns[0]:.4f}, from |0...0> {turns[1]:.4f}, from |0...0> "
           f"{turns[2]:.4f}, reading {turns[3]:.4f}; plain version from "
-          f"|0...0> {plain_ms:.4f}; write bound {bound:.4f} (bytes)")
+          f"|0...0> {plain_ms:.4f}; bound from |0...0> {zero_bound:.4f} "
+          f"({'bytes' if write_ms >= op_ms else 'operations'}: writes "
+          f"{write_ms:.4f}, {len(specs)} gates {op_ms:.4f}), bound reading "
+          f"{load_bound:.4f} ({load_by})")
     del state
     torch.cuda.empty_cache()
 
@@ -1039,7 +1052,49 @@ def rotation_phases(fused_sv, relabel, rotate, rng, gen, dev):
             "library_ms": min(turns[0], turns[3])}
 
 
-def probe_phase(region_dot, gen, dev):
+def composed_layer(region_dot, fused_sv, x, gen, dev):
+    """Seven RY gates on qubits 0-6 of one n = 29 plane (``x``, viewed
+    flat), as one composed 128x128 lane dot and as one pass of the fused
+    kernel: the two results against each other, then each timed in turns
+    (the tensor-core question of PERF.md section 7)."""
+    import numpy as np
+    import torch
+
+    thetas = np.random.default_rng(29).normal(size=7)
+    rot = [np.array([[np.cos(t / 2), -np.sin(t / 2)],
+                     [np.sin(t / 2), np.cos(t / 2)]]) for t in thetas]
+    composed = np.eye(1)
+    for r in rot:  # the later (higher) qubit is the more significant
+        composed = np.kron(r, composed)
+    m = torch.tensor(np.ascontiguousarray(composed.T), dtype=torch.float32,
+                     device=dev)
+    specs = [("U", q) for q in range(7)]
+    gm = pack_f32(rot)
+    flags = [True] * 7
+    x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+    x /= torch.linalg.vector_norm(x)
+    state = x.view(-1)
+    want, _ = fused_sv.apply_fused_layer(state.clone(), None, specs, gm,
+                                         real_flags=flags)
+    got = region_dot.lane_dot(x.clone(), m).view(-1)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    top = float(want.abs().max())
+    del got, want
+    print(f"seven RY gates on qubits 0-6, n=29: composed lane dot vs the "
+          f"fused kernel, max abs err {err:.3e} ({err / top:.2e} of max|y|)")
+    check(err <= PROBE_TOL * top, f"composed layer: {err}")
+    turns = time_turns(
+        repeat(lambda: region_dot.lane_dot(x, m)),
+        repeat(lambda: fused_sv.apply_fused_layer(state, None, specs, gm,
+                                                  real_flags=flags)),
+        10, 10)
+    print(f"seven RY gates on qubits 0-6, n=29 (ms, in turns): fused kernel "
+          f"{turns[0]:.4f}, composed lane dot {turns[1]:.4f}, composed lane "
+          f"dot {turns[2]:.4f}, fused kernel {turns[3]:.4f}")
+
+
+def probe_phase(region_dot, fused_sv, gen, dev):
     """Phase 10: the tensor-core probe. Both 3xTF32 region dots against
     float64 on the card at the probe's R = 128 and at R = 2^17 (one n = 29
     plane), then timed beside torch.matmul in full float32 and the bound.
@@ -1123,7 +1178,9 @@ def probe_phase(region_dot, gen, dev):
                      "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,
                      "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                      "library_ms": lib}
-    del x, xl, xr
+    del xl, xr
+    composed_layer(region_dot, fused_sv, x, gen, dev)
+    del x
     torch.cuda.empty_cache()
     print(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
     return out["lane"], out["row"]

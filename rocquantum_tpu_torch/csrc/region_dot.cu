@@ -12,29 +12,45 @@
 // tensor cores at float32 accuracy, at the speed of the bytes?
 //
 // Arithmetic: 3xTF32. TF32 keeps 10 mantissa bits. Each operand is split
-// v = hi + lo with hi = tf32(v) and lo = tf32(v - hi), which leaves an
-// error of about 2^-22 |v|, and each product is summed as
-// hi*hi' + (lo*hi' + hi*lo'), dropping lo*lo'. mma.sync m16n8k8 TF32 does
-// the products. The tensor cores truncate when they add to an accumulator,
-// which biases a long running sum towards zero, so the big and the small
-// products go to separate accumulators that start from zero for a few
-// k-steps and are joined, and summed over the k-steps, by rounded float32
-// adds.
+// v = hi + lo with hi = tf32(v) and lo = tf32(v - hi) (rounded to nearest,
+// cvt.rna), which leaves an error of about 2^-22 |v|, and each product is
+// summed as hi*hi' + (lo*hi' + hi*lo'), dropping lo*lo'. The tensor cores
+// truncate when they add to an accumulator, which biases a long running
+// sum towards zero, so the big products start from zero every few k-steps
+// and are joined by rounded float32 adds; the small ones (2^-11 of the big)
+// may chain.
 //
-// Lane dot design. The plane is a (rows, 128) matrix X and y = X m. Each
-// block keeps m's hi and lo splits in shared memory in mma fragment order
-// (128 KiB, above the 48 KiB default, so the launch raises the limit), runs
-// persistently over tiles of 64 rows (32 KiB) and double-buffers them with
-// cp.async, so the next tile loads while this one multiplies. 16 warps,
-// each a 16-row x 32-column corner of the tile: 4 n-tiles x 16 k-steps x
-// 3 products. Shared rows are padded to 132 floats so the A fragment reads
-// hit 32 distinct banks. A block reads all of its tile before it writes
-// it, and blocks own disjoint tiles, so in place is safe.
+// Lane dot design (wgmma). The plane is a (rows, 128) matrix X and y = X m,
+// cut into tiles of 64 rows (32 KiB, contiguous). One persistent block an
+// SM, three warpgroups:
+// - a producer warp copies m's B operand image (the wrapper's
+//   region_dot.lane_operands: hi and lo tf32 splits, K-major, in the
+//   128-byte swizzled layout a wgmma descriptor names, 64 KiB each) into
+//   shared memory once, then keeps a ring of three X tiles filled with
+//   1-D cp.async.bulk copies completing on mbarriers;
+// - two consumer warpgroups take alternate tiles. Each thread reads its A
+//   fragments (rows g, g + 8 of its warp's 16) from the staged tile as
+//   16-byte loads, splits them once in registers and issues, per k-step of
+//   8, three wgmma.mma_async m64n128k8 tf32: hi*B_hi (from zero every
+//   kGroup k-steps, joined into a float32 sum), hi*B_lo and lo*B_hi
+//   (chained). The K order is permuted (the same permutation is packed
+//   into B) so that one float4 holds a thread's A values of two k-steps,
+//   and odd rows read their two chunks in the other order, so the reads of
+//   a quarter-warp hit 32 distinct banks. A tile's stage is released
+//   after its last k-step; the results go to global memory as float2
+//   straight from the accumulators.
+// Registers: accumulators 3 x 64 floats a consumer thread, so setmaxnreg
+// gives the consumers 232 and the producer warpgroup 40. Shared memory:
+// 128 KiB of B + 3 x 32 KiB of tiles + barriers (above the 48 KiB default,
+// so the launch raises the limit). A tile is read whole into shared memory
+// before any of its rows is written, and blocks own disjoint tiles, so in
+// place is safe.
 //
 // Row dot design. Columns are independent, so a block takes a 32-row x
 // 128-column slab (16 KiB, rows padded to 136 floats for conflict-free B
 // fragment reads) of one 32-row tile; 4 warps, each 16 rows of the output
-// by 64 columns; the split of a stays in registers (32 per thread).
+// by 64 columns; the split of a stays in registers (32 per thread);
+// mma.sync m16n8k8 does the products.
 //
 // What bounds them (n = 29, R = 2^17, one 2 GiB plane): both read and write
 // the plane once, 4.3 GB = 1.28 ms at 3.35 TB/s. The lane dot does
@@ -94,133 +110,265 @@ __device__ __forceinline__ void mma_tf32_from_zero(float (&d)[4],
         "f"(z));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned int dst =
-      static_cast<unsigned int>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
+// ---- mbarriers, bulk copies, wgmma ----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// global -> shared, `bytes` (a multiple of 16), completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzled layout: 8-row groups 1024 bytes apart (SBO), LBO unused
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t(1) << 62) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 16) | uint64_t((addr >> 4) & 0x3FFF);
+}
+
+// keep the compiler from moving register reads across wgmma waits
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a b: m64n128k8, A (tf32 bit patterns) from registers, B from
+// shared memory; d starts from zero when `accumulate` is 0.
+// d[i] is row 16 warp + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2t +
+// (i & 1); a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // ---- lane dot -------------------------------------------------------------
 
-constexpr int kK = 128;              // the matrix is kK x kK
-constexpr int kLaneThreads = 512;    // 16 warps
-constexpr int kTileRows = 64;        // X rows per tile
-constexpr int kXStride = kK + 4;     // padded shared row
-constexpr int kKSteps = kK / 8;      // 16
-constexpr int kNTiles = kK / 8;      // 16
-constexpr size_t kFragBytes = size_t(kKSteps) * kNTiles * 32 * sizeof(uint4);
+#ifndef ROCQ_LANE_GROUP
+#define ROCQ_LANE_GROUP 1
+#endif
+
+constexpr int kK = 128;                  // the matrix is kK x kK
+constexpr int kKSteps = kK / 8;          // 16 wgmma k-steps
+constexpr int kGroup = ROCQ_LANE_GROUP;  // k-steps a big product spans
+constexpr int kTileRows = 64;            // X rows of kK floats per tile
+constexpr uint32_t kTileBytes = kTileRows * kK * 4;  // 32 KiB
+constexpr int kStages = 3;
+constexpr int kConsumers = 2;            // consumer warpgroups
+constexpr int kLaneThreads = (kConsumers + 1) * 128;
+constexpr uint32_t kBBytes = kK * kK * 4;  // one split of m (64 KiB)
 constexpr size_t kLaneSmem =
-    kFragBytes + 2 * size_t(kTileRows) * kXStride * sizeof(float);
+    1024 + 2 * size_t(kBBytes) + kStages * size_t(kTileBytes) + 64;
+static_assert(kKSteps % kGroup == 0, "kGroup divides the k-steps");
+static_assert(kLaneSmem <= 232448, "fits one SM's shared memory");
 
 __global__ void __launch_bounds__(kLaneThreads, 1)
-lane_dot_kernel(float* __restrict__ x, const float* __restrict__ m,
+lane_dot_kernel(float* __restrict__ x, const float* __restrict__ b_image,
                 long long ntiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint4* frag = reinterpret_cast<uint4*>(smem_raw);  // [ks][nt][lane]
-  float* xs = reinterpret_cast<float*>(smem_raw + kFragBytes);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle is on absolute address bits: B starts 1024-aligned
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* b_hi = smem;
+  unsigned char* b_lo = smem + kBBytes;
+  float* tiles = reinterpret_cast<float*>(smem + 2 * kBBytes);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + 2 * kBBytes + kStages * kTileBytes);
+  uint64_t* b_bar = bars;           // B image arrived
+  uint64_t* full = bars + 1;        // [kStages]: a tile arrived
+  uint64_t* empty = full + kStages; // [kStages]: a tile's A values read
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  auto load_tile = [&](long long tile, int buf) {
-    const float* src = x + tile * kTileRows * kK;
-    float* dst = xs + buf * kTileRows * kXStride;
-    for (int i = threadIdx.x; i < kTileRows * (kK / 4); i += kLaneThreads) {
-      const int r = i / (kK / 4);
-      const int c = (i % (kK / 4)) * 4;
-      cp_async16(dst + r * kXStride + c, src + r * kK + c);
+  if (threadIdx.x == 0) {
+    mbar_init(b_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
     }
-  };
-
-  long long tile = blockIdx.x;
-  if (tile < ntiles) load_tile(tile, 0);
-  cp_async_commit();
-
-  // m's B fragments, hi and lo, while the first tile is in flight
-  for (int i = threadIdx.x; i < kKSteps * kNTiles * 32; i += kLaneThreads) {
-    const int l = i & 31;
-    const int nt = (i >> 5) % kNTiles;
-    const int ks = (i >> 5) / kNTiles;
-    const int n = nt * 8 + (l >> 2);
-    const int k = ks * 8 + (l & 3);
-    uint4 f;
-    split_tf32(m[k * kK + n], f.x, f.z);
-    split_tf32(m[(k + 4) * kK + n], f.y, f.w);
-    frag[i] = f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int row0 = (warp >> 2) * 16;  // this warp's 16 rows of the tile
-  const int nt0 = (warp & 3) * 4;     // and its 4 n-tiles (32 columns)
+  if (threadIdx.x >= kConsumers * 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(b_bar, 2 * kBBytes);
+      bulk_load(b_hi, b_image, 2 * kBBytes, b_bar);
+      int i = 0;
+      for (long long tile = blockIdx.x; tile < ntiles;
+           tile += gridDim.x, ++i) {
+        const int stage = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[stage], (i / kStages - 1) & 1);
+        mbar_expect_tx(&full[stage], kTileBytes);
+        bulk_load(tiles + stage * (kTileBytes / 4), x + tile * kTileRows * kK,
+                  kTileBytes, &full[stage]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: alternate tiles of this block ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int odd = g & 1;
+    const uint32_t hi_addr = smem_addr(b_hi);
+    const uint32_t lo_addr = smem_addr(b_lo);
+    mbar_wait(b_bar, 0);
 
-  for (int it = 0; tile < ntiles; ++it, tile += gridDim.x) {
-    const long long next = tile + gridDim.x;
-    if (next < ntiles) load_tile(next, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: this tile is here
-    __syncthreads();
+    int i = wg;
+    for (long long tile = blockIdx.x + wg * (long long)gridDim.x;
+         tile < ntiles; tile += kConsumers * (long long)gridDim.x,
+                   i += kConsumers) {
+      const int stage = i % kStages;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      // row g of this warp's 16, at column 4t of each 16-float chunk
+      const float* xs =
+          tiles + stage * (kTileBytes / 4) + (warp * 16 + g) * kK + 4 * t;
 
-    const float* xt = xs + (it & 1) * kTileRows * kXStride;
-    float acc[4][4] = {};
-#pragma unroll 2
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      uint32_t ah[4], al[4];
-      const float* p = xt + (row0 + g) * kXStride + ks * 8 + t;
-      split_tf32(p[0], ah[0], al[0]);
-      split_tf32(p[8 * kXStride], ah[1], al[1]);
-      split_tf32(p[4], ah[2], al[2]);
-      split_tf32(p[8 * kXStride + 4], ah[3], al[3]);
-      uint4 b[4];  // {hi b0, hi b1, lo b0, lo b1} of 4 n-tiles
+      float acc[64], big[64], small[64];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = frag[(ks * kNTiles + nt0 + j) * 32 + lane];
-      }
-      // this k-step's 8-term sums start from zero on the tensor cores and
-      // join acc by a rounded float32 add: the tensor cores truncate when
-      // they accumulate, which would bias a 128-term running sum
-      float small[4][4], big[4][4];
+      for (int q = 0; q < kKSteps / 4; ++q) {
+        // chunks 2q and 2q + 1 (k-steps 4q .. 4q + 3) of rows g and g + 8;
+        // odd rows load them in the other order (distinct banks)
+        float4 v[2][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_tf32_from_zero(small[j], al, b[j].x, b[j].y);
-        mma_tf32_from_zero(big[j], ah, b[j].x, b[j].y);
-      }
+        for (int r = 0; r < 2; ++r) {
+          const float* p = xs + r * 8 * kK + 32 * q;
+          const float4 first =
+              *reinterpret_cast<const float4*>(p + 16 * odd);
+          const float4 second =
+              *reinterpret_cast<const float4*>(p + 16 * (1 - odd));
+          v[r][0] = odd ? second : first;
+          v[r][1] = odd ? first : second;
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mma_tf32(small[j], ah, b[j].z, b[j].w);
-      }
+        for (int h = 0; h < 4; ++h) {
+          const int s = 4 * q + h;
+          // k-step s holds, at logical k = t and t + 4, the chunk's
+          // elements 2 (s % 2) and 2 (s % 2) + 1
+          const float4& c0 = v[0][h >> 1];
+          const float4& c1 = v[1][h >> 1];
+          uint32_t a_hi[4], a_lo[4];
+          split_tf32((h & 1) ? c0.z : c0.x, a_hi[0], a_lo[0]);
+          split_tf32((h & 1) ? c1.z : c1.x, a_hi[1], a_lo[1]);
+          split_tf32((h & 1) ? c0.w : c0.y, a_hi[2], a_lo[2]);
+          split_tf32((h & 1) ? c1.w : c1.y, a_hi[3], a_lo[3]);
+          // k-step s of B: K block s / 4 (16 KiB), 32 bytes in per s % 4
+          const uint32_t off = (s >> 2) * (kBBytes / 4) + (s & 3) * 32;
+          wgmma_fence();
+          wgmma_tf32(big, a_hi, b_desc(hi_addr + off), s % kGroup);
+          wgmma_tf32(small, a_hi, b_desc(lo_addr + off), s);
+          wgmma_tf32(small, a_lo, b_desc(hi_addr + off), 1);
+          wgmma_commit_and_wait();
+          fence_regs(big);
+          fence_regs(small);
+          if (s % kGroup == kGroup - 1) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[j][e] += big[j][e] + small[j][e];
+            for (int e = 0; e < 64; ++e) {
+              acc[e] = s == kGroup - 1 ? big[e] : acc[e] + big[e];
+            }
+          }
         }
       }
-    }
 
-    float* out = x + tile * kTileRows * kK;
+      // release the stage once every value read from it has fed a wgmma
+      // (waited on): an mbarrier arrive does not wait for shared loads in
+      // flight, and the producer's next bulk copy would overwrite them.
+      // The fence orders these generic-proxy reads before that copy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&empty[stage]);
+
+      float* out = x + (tile * kTileRows + warp * 16 + g) * kK + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row0 + g;
-      const int c = (nt0 + j) * 8 + 2 * t;
-      *reinterpret_cast<float2*>(out + r * kK + c) =
-          make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * kK + c) =
-          make_float2(acc[j][2], acc[j][3]);
+      for (int e = 0; e < 64; e += 4) {
+        const int col = 8 * (e >> 2);
+        *reinterpret_cast<float2*>(out + col) =
+            make_float2(acc[e] + small[e], acc[e + 1] + small[e + 1]);
+        *reinterpret_cast<float2*>(out + 8 * kK + col) =
+            make_float2(acc[e + 2] + small[e + 2],
+                        acc[e + 3] + small[e + 3]);
+      }
     }
-    __syncthreads();  // this buffer is refilled two iterations on
   }
-  cp_async_wait<0>();
 }
 
 // ---- row dot --------------------------------------------------------------
@@ -308,11 +456,11 @@ bool misaligned(const void* p) {
 }  // namespace
 
 // x: (rows, 4096) float32 on the device, updated in place; rows a multiple
-// of 32. m: (128, 128) float32 on the device, row-major. Returns a
-// cudaError_t.
-extern "C" int rocq_lane_dot(float* x, const float* m, long long rows,
+// of 32. b_image: m's B operand image on the device (2 x 128 x 128 tf32
+// bit patterns, region_dot.lane_operands). Returns a cudaError_t.
+extern "C" int rocq_lane_dot(float* x, const float* b_image, long long rows,
                              void* stream) {
-  if (rows < 32 || rows % 32 != 0 || misaligned(x) || misaligned(m)) {
+  if (rows < 32 || rows % 32 != 0 || misaligned(x) || misaligned(b_image)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long ntiles = rows * (kCols / kK) / kTileRows;
@@ -330,8 +478,8 @@ extern "C" int rocq_lane_dot(float* x, const float* m, long long rows,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = ntiles < sms ? ntiles : sms;
   lane_dot_kernel<<<static_cast<unsigned int>(blocks), kLaneThreads,
-                    kLaneSmem, static_cast<cudaStream_t>(stream)>>>(x, m,
-                                                                    ntiles);
+                    kLaneSmem, static_cast<cudaStream_t>(stream)>>>(
+      x, b_image, ntiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -364,6 +364,70 @@ def test_region_dots_match_float64(cuda, rows):
         assert err <= 1e-5 * float(want.abs().max()), (count, err)
 
 
+def _lane_case(cuda, rows, seed, scale=1.0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    x = torch.randn(rows, region_dot.COLS, generator=gen, device=cuda) * scale
+    m = torch.randn(region_dot.LANE, region_dot.LANE, generator=gen,
+                    device=cuda)
+    return x, m, region_dot.lane_dot_reference(x.double(), m.double())
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -20, 2.0 ** 20])
+def test_lane_dot_keeps_float32_accuracy_at_any_scale(cuda, scale):
+    """The 3xTF32 split is relative: inputs scaled by 2^-20 or 2^20 stay
+    within 1e-6 of max|y| of the float64 product."""
+    x, m, want = _lane_case(cuda, 4096, 11, scale)
+    got = region_dot.lane_dot(x, m)
+    torch.cuda.synchronize()
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), err
+
+
+def test_lane_dot_runs_on_the_current_stream(cuda):
+    """A launch on a non-default stream runs there, in order with the
+    stream's other work, and counts one launch."""
+    x, m, want = _lane_case(cuda, 2048, 12)
+    y = torch.empty_like(x)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    before = region_dot.LANE_LAUNCHES
+    with torch.cuda.stream(stream):
+        y.copy_(x)
+        region_dot.lane_dot(y, m)
+        y.mul_(2.0)
+    stream.synchronize()
+    assert region_dot.LANE_LAUNCHES == before + 1
+    err = float((y.double() / 2 - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_lane_dot_applies_a_composed_ry_layer_as_the_fused_kernel(cuda):
+    """Seven RY gates on qubits 0-6 as one 128x128 lane dot on the card,
+    against the fused-layer kernel on the same gates: within 1e-5."""
+    n = 22
+    thetas = np.random.default_rng(13).normal(size=7)
+    rot = [np.array([[np.cos(t / 2), -np.sin(t / 2)],
+                     [np.sin(t / 2), np.cos(t / 2)]]) for t in thetas]
+    composed = np.eye(1)
+    for r in rot:  # the later (higher) qubit is the more significant
+        composed = np.kron(r, composed)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    state = torch.randn(1 << n, generator=gen, device=cuda)
+    state /= torch.linalg.vector_norm(state)
+    specs = [("U", q) for q in range(7)]
+    want, _ = fused_sv.apply_fused_layer(
+        state.clone(), None, specs, _pack_f32([r.astype(complex) for r in rot]),
+        real_flags=[True] * 7)
+    got = region_dot.lane_dot(
+        state.clone().view(-1, region_dot.COLS),
+        torch.tensor(np.ascontiguousarray(composed.T), dtype=torch.float32,
+                     device=cuda))
+    torch.cuda.synchronize()
+    assert float((got.reshape(-1) - want).abs().max()) <= 1e-5
+
+
 @contextlib.contextmanager
 def _plain_layers():
     kernel_fn = fused_sv.apply_fused_layer

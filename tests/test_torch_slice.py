@@ -111,6 +111,29 @@ def test_ghz_probabilities_and_samples():
     assert 0.5 * np.abs(hist_t / shots - 0.5).sum() <= 0.03
 
 
+def test_sample_returns_int32_as_the_reference():
+    """Circuit.sample gives int32 outcomes on both packages, of one shape;
+    sample_counts stays the histogram of those outcomes as bitstrings."""
+    ir = _bound_ansatz(N, 1, seed=6)
+    cj, ct = _pair_circuits(ir, seed=11)
+    qubits, shots = [0, 3, 7], 4000
+    got_j = np.asarray(cj.sample(qubits, shots))
+    got_t = ct.sample(qubits, shots)
+    assert got_j.dtype == np.int32 and got_t.dtype == np.int32
+    assert got_j.shape == got_t.shape == (shots,)
+    assert 0 <= got_t.min() and got_t.max() < 1 << len(qubits)
+    hist_t = np.bincount(got_t, minlength=8) / shots
+    hist_j = np.bincount(got_j, minlength=8) / shots
+    assert 0.5 * np.abs(hist_t - hist_j).sum() <= 0.05
+    # the same seed draws the same outcomes again, counted by sample_counts
+    _, again = _pair_circuits(ir, seed=11)
+    counts = again.sample_counts(qubits, shots)
+    want = {format(v, "03b"): int(c)
+            for v, c in enumerate(np.bincount(got_t, minlength=8)) if c}
+    assert counts == want
+    assert all(type(c) is int for c in counts.values())
+
+
 def test_measure_same_outcomes_for_same_seed():
     ir = _bound_ansatz(N, 1, seed=4)
     cj, ct = _pair_circuits(ir, seed=11)
