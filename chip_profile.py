@@ -33,14 +33,6 @@ Two measurements, each printed with the card's name and power limit:
      host's CPU time per launch without the launch (check, cached
      schedule, parameter block), and each pass alone, grouped by tile size
      and exchanges.
-  6. The lane dot's accumulation (csrc/region_dot.cu, ROCQ_LANE_GROUP):
-     the kernel built with the big 3xTF32 products started from zero every
-     G = 1, 2, 4 k-steps and joined in rounded float32, and chained over
-     all 16 (G = 16), each held against float64 at R = 2^17 (max abs error
-     over max|y|) and timed in turns (CUDA events, the launch alone, the
-     B image packed once).
-
-``python3 chip_profile.py lane`` runs section 6 alone.
 
 Needs CUDA; without it, exits non-zero and prints nothing else.
 """
@@ -187,10 +179,6 @@ def main():
     dev = torch.device("cuda")
     print(f"card: {smi_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if sys.argv[1:] == ["lane"]:
-        lane_groups(dev)
-        print(f"card: {smi_line()}")
-        return 0
     sim = rq.Simulator(seed=7, device=dev)
 
     rq.set_precision("single")
@@ -244,80 +232,8 @@ def main():
     compare_geometries(dev)
     compare_exchange_regs(dev)
     df64_plan_passes(dev)
-    lane_groups(dev)
     print(f"card: {smi_line()}")
     return 0
-
-
-LANE_GROUPS = (1, 2, 4, 16)
-
-
-def lane_groups(dev):
-    """Section 6: the lane dot built with each accumulation group G, its
-    error against float64 and its time at R = 2^17, in turns."""
-    import ctypes
-
-    import torch
-    from rocquantum_tpu_torch.ops import _build, region_dot
-
-    libs = {}
-    for group in LANE_GROUPS:
-        lib = _build.load_cuda("region_dot", [f"ROCQ_LANE_GROUP={group}"])
-        lib.rocq_lane_dot.restype = ctypes.c_int
-        lib.rocq_lane_dot.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_longlong, ctypes.c_void_p]
-        libs[group] = lib
-        for line in _build.BUILD_LOGS.get(
-                f"region_dot-ROCQ_LANE_GROUP={group}", "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas G={group}: {line.strip()}")
-    rows = 1 << 17
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    x = torch.randn(rows, region_dot.COLS, generator=gen, device=dev)
-    m = torch.randn(region_dot.LANE, region_dot.LANE, generator=gen,
-                    device=dev)
-    want = region_dot.lane_dot_reference(x.double(), m.double())
-    top = float(want.abs().max())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def launch(group, y, image):
-        err = libs[group].rocq_lane_dot(y.data_ptr(), image.data_ptr(), rows,
-                                        stream)
-        if err:
-            raise RuntimeError(f"lane dot G={group}: cudaError_t {err}")
-
-    image = region_dot.lane_operands(m)
-    errs = {}
-    for group in LANE_GROUPS:
-        y = x.clone()
-        launch(group, y, image)
-        torch.cuda.synchronize()
-        errs[group] = float((y.double() - want).abs().max()) / top
-        del y
-    del want
-    torch.cuda.empty_cache()
-    # orthogonal m: repeated in-place products stay finite
-    q = torch.linalg.qr(m)[0].contiguous()
-    image = region_dot.lane_operands(q)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    times = {}
-    for group in LANE_GROUPS + LANE_GROUPS[::-1]:
-        launch(group, x, image)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(REPS):
-            launch(group, x, image)
-        stop.record()
-        torch.cuda.synchronize()
-        times.setdefault(group, []).append(start.elapsed_time(stop) / REPS)
-    for group in LANE_GROUPS:
-        print(f"[lane dot R={rows}] G={group}: error {errs[group]:.3e} of "
-              f"max|y| {top:.2f}; ms (in turns) "
-              f"{', '.join(f'{t:.4f}' for t in times[group])}")
-    del x
-    torch.cuda.empty_cache()
 
 
 def compare_exchange_regs(dev):

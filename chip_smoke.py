@@ -1094,6 +1094,28 @@ def composed_layer(region_dot, fused_sv, x, gen, dev):
           f"dot {turns[2]:.4f}, fused kernel {turns[3]:.4f}")
 
 
+def lane_wrapper_parts(region_dot, x, m):
+    """The lane wrapper's two parts timed apart, in turns: the packing of
+    m's B image alone, and the kernel launched on an image packed once
+    (straight through the library, so it counts no launch)."""
+    import torch
+
+    lib = region_dot.build()
+    image = region_dot.lane_operands(m)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch():
+        err = lib.rocq_lane_dot(x.data_ptr(), image.data_ptr(), x.shape[0],
+                                stream)
+        check(err == 0, f"lane dot launch: cudaError_t {err}")
+
+    turns = time_turns(repeat(launch),
+                       repeat(lambda: region_dot.lane_operands(m)), 10, 10)
+    print(f"lane dot R={x.shape[0]}, the wrapper's parts (ms, in turns): B "
+          f"packing {turns[0]:.4f}, launch alone {turns[1]:.4f}, launch "
+          f"alone {turns[2]:.4f}, B packing {turns[3]:.4f}")
+
+
 def probe_phase(region_dot, fused_sv, gen, dev):
     """Phase 10: the tensor-core probe. Both 3xTF32 region dots against
     float64 on the card at the probe's R = 128 and at R = 2^17 (one n = 29
@@ -1173,6 +1195,8 @@ def probe_phase(region_dot, fused_sv, gen, dev):
               f"{turns[3]:.4f}; torch.matmul float32 {lib:.4f}; bound "
               f"{bound:.4f} (bytes {byte_ms:.4f}, 3xTF32 {op_ms:.4f}; the "
               f"FP32 cores would need {fp32_ms:.4f})")
+        if name == "lane":
+            lane_wrapper_parts(region_dot, x, m)
         out[name] = {"launches": launches[name], "max_abs_err": results[name],
                      "ms": min(turns[1], turns[2]),
                      "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,

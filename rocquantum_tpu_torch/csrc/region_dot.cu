@@ -32,8 +32,8 @@
 //   fragments (rows g, g + 8 of its warp's 16) from the staged tile as
 //   16-byte loads, splits them once in registers and issues, per k-step of
 //   8, three wgmma.mma_async m64n128k8 tf32: hi*B_hi (from zero every
-//   kGroup k-steps, joined into a float32 sum), hi*B_lo and lo*B_hi
-//   (chained). The K order is permuted (the same permutation is packed
+//   k-step, joined into a float32 sum), hi*B_lo and lo*B_hi (chained).
+//   The K order is permuted (the same permutation is packed
 //   into B) so that one float4 holds a thread's A values of two k-steps,
 //   and odd rows read their two chunks in the other order, so the reads of
 //   a quarter-warp hit 32 distinct banks. A tile's stage is released
@@ -221,13 +221,8 @@ __device__ __forceinline__ void wgmma_commit_and_wait() {
 
 // ---- lane dot -------------------------------------------------------------
 
-#ifndef ROCQ_LANE_GROUP
-#define ROCQ_LANE_GROUP 1
-#endif
-
 constexpr int kK = 128;                  // the matrix is kK x kK
 constexpr int kKSteps = kK / 8;          // 16 wgmma k-steps
-constexpr int kGroup = ROCQ_LANE_GROUP;  // k-steps a big product spans
 constexpr int kTileRows = 64;            // X rows of kK floats per tile
 constexpr uint32_t kTileBytes = kTileRows * kK * 4;  // 32 KiB
 constexpr int kStages = 3;
@@ -236,7 +231,6 @@ constexpr int kLaneThreads = (kConsumers + 1) * 128;
 constexpr uint32_t kBBytes = kK * kK * 4;  // one split of m (64 KiB)
 constexpr size_t kLaneSmem =
     1024 + 2 * size_t(kBBytes) + kStages * size_t(kTileBytes) + 64;
-static_assert(kKSteps % kGroup == 0, "kGroup divides the k-steps");
 static_assert(kLaneSmem <= 232448, "fits one SM's shared memory");
 
 __global__ void __launch_bounds__(kLaneThreads, 1)
@@ -335,17 +329,15 @@ lane_dot_kernel(float* __restrict__ x, const float* __restrict__ b_image,
           // k-step s of B: K block s / 4 (16 KiB), 32 bytes in per s % 4
           const uint32_t off = (s >> 2) * (kBBytes / 4) + (s & 3) * 32;
           wgmma_fence();
-          wgmma_tf32(big, a_hi, b_desc(hi_addr + off), s % kGroup);
+          wgmma_tf32(big, a_hi, b_desc(hi_addr + off), 0);
           wgmma_tf32(small, a_hi, b_desc(lo_addr + off), s);
           wgmma_tf32(small, a_lo, b_desc(hi_addr + off), 1);
           wgmma_commit_and_wait();
           fence_regs(big);
           fence_regs(small);
-          if (s % kGroup == kGroup - 1) {
 #pragma unroll
-            for (int e = 0; e < 64; ++e) {
-              acc[e] = s == kGroup - 1 ? big[e] : acc[e] + big[e];
-            }
+          for (int e = 0; e < 64; ++e) {
+            acc[e] = s == 0 ? big[e] : acc[e] + big[e];
           }
         }
       }

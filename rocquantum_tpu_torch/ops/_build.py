@@ -18,7 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List, Sequence
+from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG_DIR)
@@ -69,14 +69,12 @@ def _build(name: str, sources: List[str], command: List[str],
     return out
 
 
-def load_cuda(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load_cuda(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` with nvcc (once per source hash) and load
-    it. ``defines`` (``"NAME=VALUE"``) build a variant of the source, named
-    and logged as ``<name>-NAME=VALUE...``."""
+    it."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    label = "-".join([name, *defines])
-    return ctypes.CDLL(_build(label, [src], [find_nvcc()] + NVCC_FLAGS
-                              + [f"-D{d}" for d in defines], timeout=600))
+    return ctypes.CDLL(_build(name, [src], [find_nvcc()] + NVCC_FLAGS,
+                              timeout=600))
 
 
 def load_host_cpp(name: str, source: str) -> ctypes.CDLL:

@@ -404,7 +404,8 @@ def test_lane_dot_runs_on_the_current_stream(cuda):
 
 def test_lane_dot_applies_a_composed_ry_layer_as_the_fused_kernel(cuda):
     """Seven RY gates on qubits 0-6 as one 128x128 lane dot on the card,
-    against the fused-layer kernel on the same gates: within 1e-5."""
+    against the fused-layer kernel on the same gates: within 1e-5 of
+    max|y|."""
     n = 22
     thetas = np.random.default_rng(13).normal(size=7)
     rot = [np.array([[np.cos(t / 2), -np.sin(t / 2)],
@@ -425,7 +426,8 @@ def test_lane_dot_applies_a_composed_ry_layer_as_the_fused_kernel(cuda):
         torch.tensor(np.ascontiguousarray(composed.T), dtype=torch.float32,
                      device=cuda))
     torch.cuda.synchronize()
-    assert float((got.reshape(-1) - want).abs().max()) <= 1e-5
+    top = float(want.abs().max())
+    assert float((got.reshape(-1) - want).abs().max()) <= 1e-5 * top
 
 
 @contextlib.contextmanager
