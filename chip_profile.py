@@ -5,7 +5,8 @@ Run from the repository root, with one CUDA device visible:
 
     python3 chip_profile.py
 
-Two measurements, each printed with the card's name and power limit:
+Six measurements, printed between two lines of the card's name and power
+limit:
 
   1. Where the time of one energy request goes: a ring ansatz (8 RY-column
      + CNOT-ring layers) flushed and read out against a transverse-field
@@ -33,6 +34,11 @@ Two measurements, each printed with the card's name and power limit:
      host's CPU time per launch without the launch (check, cached
      schedule, parameter block), and each pass alone, grouped by tile size
      and exchanges.
+  6. Where the time of one gradient goes: adjoint_grad of the same ansatz
+     as a @kernel function against the same Hamiltonian, in single
+     precision at n = 29 (8 layers) and under set_precision("df64") at
+     n = 26 (2 layers, the exact engine); after a warm-up gradient, one
+     runs under torch.profiler, reported as in section 1.
 
 Needs CUDA; without it, exits non-zero and prints nothing else.
 """
@@ -84,7 +90,6 @@ def _top_level(evt):
 def profile_request(label, rq, n, sim):
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     hamiltonian = rq.PauliOperator(
@@ -98,6 +103,17 @@ def profile_request(label, rq, n, sim):
         t0 = time.perf_counter()
         request(circ, n, theta, hamiltonian)
         wall = time.perf_counter() - t0
+    report(f"[{label}] one request at n={n}, {LAYERS} layers", label, prof,
+           wall)
+    del circ
+    torch.cuda.empty_cache()
+
+
+def report(title, label, prof, wall):
+    """Wall time, device busy time, idle share, then device time by
+    top-level operator and by kernel of one profiled run."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_op = collections.Counter()
@@ -110,16 +126,52 @@ def profile_request(label, rq, n, sim):
     by_kernel = collections.Counter()
     for e in kernels:
         by_kernel[e.name[:70]] += e.time_range.elapsed_us()
-    print(f"[{label}] one request at n={n}, {LAYERS} layers: wall "
-          f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, idle "
-          f"share {1 - busy_us / 1e3 / (wall * 1e3):.3f}")
+    print(f"{title}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, idle share "
+          f"{1 - busy_us / 1e3 / (wall * 1e3):.3f}")
     for name, us in by_op.most_common(10):
         print(f"[{label}]   op {name}: {us / 1e3:.1f} ms "
               f"({us / max(busy_us, 1):.1%}), {calls[name]} kernel-bearing "
               f"calls")
     for name, us in by_kernel.most_common(6):
         print(f"[{label}]   kernel {name}: {us / 1e3:.1f} ms")
-    del circ
+
+
+def ring_kernel(q, *theta):
+    """The request's ansatz as a kernel body."""
+    n = q.num_qubits
+    for layer in range(len(theta) // n):
+        for qq in range(n):
+            q.ry(theta[layer * n + qq], qq)
+        for qq in range(n):
+            q.cx(qq, (qq + 1) % n)
+
+
+def profile_gradient(label, rq, n, layers, sim):
+    """Section 6: one warm adjoint_grad of the ring ansatz under
+    torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    hamiltonian = rq.PauliOperator(
+        {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}) + \
+        rq.PauliOperator({f"X{q}": -0.5 for q in range(n)})
+    theta = np.random.default_rng(100).normal(size=n * layers)
+    ring = rq.kernel(ring_kernel)
+
+    def gradient():
+        rq.adjoint_grad(ring, n, sim, theta, hamiltonian)
+        torch.cuda.synchronize()
+
+    gradient()  # warm-up: plans
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gradient()
+        wall = time.perf_counter() - t0
+    report(f"[{label}] one gradient at n={n}, {layers} layers, "
+           f"{len(theta)} angles", label, prof, wall)
     torch.cuda.empty_cache()
 
 
@@ -232,6 +284,10 @@ def main():
     compare_geometries(dev)
     compare_exchange_regs(dev)
     df64_plan_passes(dev)
+    profile_gradient("f32 gradient", rq, F32_N, LAYERS, sim)
+    rq.set_precision("df64")
+    profile_gradient("double gradient", rq, DF64_N, 2, sim)
+    rq.set_precision("single")
     print(f"card: {smi_line()}")
     return 0
 

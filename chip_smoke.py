@@ -49,10 +49,22 @@ Phases:
      dots against float64 at R = 128 and R = 2^17, timed beside
      torch.matmul in full float32 and the bound; seven RY gates on qubits
      0-6 at n = 29 as one composed lane dot and as one fused-kernel pass,
-     held against each other and timed in turns.
+     held against each other and timed in turns;
+  11. the kernel front end, compiled programs and adjoint gradients: a
+     @kernel ring ansatz at n = 29 (8 layers, 232 angles) differentiated by
+     adjoint_grad against phase 4's energy, parameter shift through
+     compile_program and the same sweep with the plain layer function,
+     with its launches, times and peak memory beside a 2-layer run; the
+     double-precision gradient under set_precision("df64") at n = 26 (2
+     layers) against parameter shift and the exact engine's energy;
+     compile_program replays of the n = 29 ansatz (phase 4's energies), of
+     the QFT at n = 26 (against Circuit runs, timed beside them) and of the
+     df64 ansatz (phase 7's energy); VQE-H2 (examples/vqe_h2.py) with
+     L-BFGS-B on the card.
 
-Each path (phases 4, 7 and 9, and the probe's R = 2^17 call of each dot)
-runs with every launch count set to 0 just before it and read just after.
+Each path (phases 4, 7, 9 and 11's gradient, and the probe's R = 2^17 call
+of each dot) runs with every launch count set to 0 just before it and read
+just after.
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -88,6 +100,16 @@ ROTATE_SHIFTS = (1, 3, 12, 21)
 PROBE_ROWS_SMALL = 1 << 7   # the MXU probe's own size (tpu_mxu_probe.py:42)
 PROBE_ROWS = 1 << 17        # (R, 4096) float32 = one n = 29 plane
 PROBE_TOL = 1e-5      # region dots: max abs error / max|y| vs float64
+GRAD_SHIFT_ATOL = 2e-3   # f32 adjoint gradient vs parameter shift
+GRAD_PLAIN_ATOL = 1e-3   # f32 gradient, kernel vs plain layers
+GRAD_MEMORY_RATIO = 1.25  # peak memory, 8 layers over 2 layers
+DF64_GRAD_ATOL = 1e-9    # double adjoint gradient vs parameter shift
+DF64_GRAD_LAYERS = 2
+REPLAY_RTOL = 1e-6       # compile_program vs the Circuit it replays (f32)
+DF64_REPLAY_RTOL = 1e-12
+QFT_REPLAYS = 5
+VQE_H2_ENERGY = -1.13728  # ROADMAP "Source paper"; examples/vqe_h2.py
+VQE_H2_ATOL = 2e-3
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -521,11 +543,14 @@ def main():
     gen_zero_timing(fused_sv, passes[0], n, dev)
     print(f"fill launches in the main-path run: {init_launches}")
 
-    df = df64_phases(rq, interpreter, PallasBlock,
+    phase4_energies = [e for e, _, _ in answers]
+    df, df64_energy = df64_phases(rq, interpreter, PallasBlock,
                      hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
                      fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
     rot = rotation_phases(fused_sv, relabel, rotate, rng, gen, dev)
     lane, row = probe_phase(region_dot, fused_sv, gen, dev)
+    gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
+                   requests, phase4_energies, df64_energy, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -582,7 +607,8 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
                 qft_f32_err):
     """Phases 6 and 7: the df64 kernel against its plain version on the
     card, then the double-precision slice at n = 26. Returns the df64
-    kernel's numbers for the kernels line."""
+    kernel's numbers for the kernels line and the first request's
+    energy."""
     import numpy as np
     import torch
 
@@ -776,7 +802,7 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     print(f"df64 phases: {time.perf_counter() - t_phases:.1f} s")
     return {"launches": launches, "max_abs_err": worst,
             "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}, e0
 
 
 def df64_qft_pass(interpreter, PallasBlock, qft_ir, df64, fused_df64,
@@ -1208,6 +1234,253 @@ def probe_phase(region_dot, fused_sv, gen, dev):
     torch.cuda.empty_cache()
     print(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
     return out["lane"], out["row"]
+
+
+def ring_kernel(q, *theta):
+    """The ansatz of phases 4 and 7 as a kernel body: per layer an RY
+    column, then a CNOT ring."""
+    n = q.num_qubits
+    for layer in range(len(theta) // n):
+        for qq in range(n):
+            q.ry(theta[layer * n + qq], qq)
+        for qq in range(n):
+            q.cx(qq, (qq + 1) % n)
+
+
+def tfim(rq, n):
+    zz = {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}
+    return rq.PauliOperator(zz) + rq.PauliOperator(
+        {f"X{q}": -0.5 for q in range(n)})
+
+
+def shift_gradient(rq, prog, theta, ks):
+    """Parameter-shift components ``ks`` of ``prog``'s energy, each side
+    one compile_program replay."""
+    import numpy as np
+    out = []
+    for k in ks:
+        d = np.zeros_like(theta)
+        d[k] = np.pi / 2
+        out.append(0.5 * (prog.run(theta + d) - prog.run(theta - d)))
+    return np.asarray(out)
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()``, synchronized on both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
+                   requests, phase4_energies, df64_energy, dev):
+    """Phase 11: the kernel front end, compiled programs and adjoint
+    gradients at the main path's widths."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    gib = 1 << 30
+    ring = rq.kernel(ring_kernel)
+    sim = rq.Simulator(seed=7, device=dev)
+
+    # ---- 11.1 f32 gradient, n = 29, 8 layers -----------------------------
+    n = ANSATZ_N
+    hamiltonian = tfim(rq, n)
+    theta = np.asarray(requests[0], np.float64)
+    params = len(theta)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_deep = torch.cuda.memory_allocated()
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    (value, grads), t_first = wall(lambda: rq.adjoint_grad(
+        ring, n, sim, theta, hamiltonian, return_value=True))
+    launches = (fused_sv.LAUNCHES, fused_sv.ZERO_LAUNCHES,
+                fused_sv.INIT_LAUNCHES, fused_df64.LAUNCHES)
+    peak_deep = torch.cuda.max_memory_allocated()
+    print(f"gradient n={n}, {ANSATZ_LAYERS} layers, {params} angles: "
+          f"launches (fused, fill, from |0...0>, df64) {launches}, first "
+          f"adjoint_grad {t_first * 1e3:.1f} ms (plans made)")
+    check(launches[0] > 0, "the gradient launched the fused kernel")
+    check(launches[3] == 0, "the f32 gradient launched no df64 pass")
+    rel = abs(value - phase4_energies[0]) / abs(phase4_energies[0])
+    print(f"gradient value {value:.7f} vs phase 4 request 0 "
+          f"{phase4_energies[0]:.7f}: rel diff {rel:.2e}")
+    check(np.isfinite(value) and rel <= ENERGY_RTOL, f"value {value}")
+    check(bool(np.isfinite(grads).all()), "finite gradient")
+    (again_v, again_g), t_again = wall(lambda: rq.adjoint_grad(
+        ring, n, sim, theta, hamiltonian, return_value=True))
+    check(again_v == value and np.array_equal(again_g, grads),
+          "a repeated gradient gives the same numbers")
+    energy = rq.make_energy_fn(ring, n, hamiltonian, params, device=dev)
+    p = torch.tensor(theta, dtype=torch.float32, requires_grad=True)
+    e, t_fwd = wall(lambda: energy(p))
+    _, t_bwd = wall(lambda: e.backward())
+    check(np.array_equal(p.grad.numpy(), grads), "energy fn == adjoint_grad")
+    print(f"repeated adjoint_grad {t_again * 1e3:.1f} ms (plans cached); "
+          f"forward + energy {t_fwd * 1e3:.1f} ms, backward "
+          f"{t_bwd * 1e3:.1f} ms = {t_bwd * 1e3 / params:.2f} ms per "
+          f"parameterized gate")
+    del e, p, energy
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_shallow = torch.cuda.memory_allocated()
+    rq.adjoint_grad(ring, n, sim, theta[:2 * n], hamiltonian)
+    peak_shallow = torch.cuda.max_memory_allocated()
+    ratio = peak_deep / peak_shallow
+    print(f"gradient peak memory: {ANSATZ_LAYERS} layers "
+          f"{peak_deep / gib:.3f} GiB, 2 layers {peak_shallow / gib:.3f} "
+          f"GiB, ratio {ratio:.4f} (allocated before each: "
+          f"{base_deep / gib:.3f}, {base_shallow / gib:.3f} GiB)")
+    check(ratio <= GRAD_MEMORY_RATIO, f"memory ratio {ratio}")
+
+    prog = rq.compile_program(rq.trace_kernel(ring, n, *requests[0]), sim,
+                              observable=hamiltonian)
+    ks = np.random.default_rng(11).choice(params, 4, replace=False)
+    shifted = shift_gradient(rq, prog, np.asarray(requests[0], np.float32),
+                             ks)
+    worst = float(np.abs(grads[ks] - shifted).max())
+    print(f"gradient vs parameter shift at angles {ks.tolist()}: "
+          f"{[round(float(g), 7) for g in grads[ks]]} vs "
+          f"{[round(float(g), 7) for g in shifted]}, worst abs diff "
+          f"{worst:.2e}")
+    check(worst <= GRAD_SHIFT_ATOL, f"parameter shift: {worst}")
+
+    with plain_layers(fused_sv, "apply_fused_layer",
+                      fused_sv.apply_fused_layer_reference):
+        before = fused_sv.LAUNCHES
+        (plain_v, plain_g), t_plain = wall(lambda: rq.adjoint_grad(
+            ring, n, sim, theta, hamiltonian, return_value=True))
+        check(fused_sv.LAUNCHES == before, "plain sweep launched no pass")
+    diff = float(np.abs(plain_g - grads).max())
+    rel = abs(plain_v - value) / abs(plain_v)
+    print(f"gradient n={n} vs the same sweep with plain layers "
+          f"({t_plain:.1f} s): max abs diff {diff:.2e}, value rel diff "
+          f"{rel:.2e}")
+    check(diff <= GRAD_PLAIN_ATOL and rel <= ENERGY_RTOL,
+          f"plain layers: {diff}, {rel}")
+
+
+    # ---- 11.3 compile_program replays -------------------------------------
+    replayed = [prog.run(r) for r in requests]
+    for r, (got, want) in enumerate(zip(replayed, phase4_energies)):
+        rel = abs(got - want) / abs(want)
+        print(f"compile_program n={n} request {r}: {got:.7f} vs phase 4 "
+              f"{want:.7f}, rel diff {rel:.2e}")
+        check(rel <= REPLAY_RTOL, f"replay {r}: {got} vs {want}")
+    del prog
+    torch.cuda.empty_cache()
+
+    nq = QFT_N
+    x = 0x2A5F3C1 % (1 << nq)
+    qft = rq.CircuitIR(nq, name="qft_basis")
+    for q in range(nq):
+        if (x >> q) & 1:
+            qft.add("X", [q])
+    qft.ops.extend(qft_ir(nq).ops)
+    obs = rq.PauliOperator({"X0": 1.0, "Z0": 0.5, "Y1 X2": 0.25})
+    handle = rq.compile_program(qft, sim)
+    replay_s, circuit_s = [], []
+    for _ in range(QFT_REPLAYS):
+        c, t = wall(handle.run)
+        replay_s.append(t)
+        got = c.expval(obs)
+        circ = rq.Circuit(nq, sim)
+
+        def enqueue_and_flush():
+            for op in qft.ops:
+                circ._enqueue(op.name, op.targets, op.controls, op.params)
+            circ.flush()
+
+        _, t = wall(enqueue_and_flush)
+        circuit_s.append(t)
+        want = circ.expval(obs)
+        check(abs(got - want) <= 1e-6, f"QFT replay {got} vs {want}")
+        del circ
+    print(f"compile_program QFT n={nq}: {QFT_REPLAYS} replays equal the "
+          f"Circuit runs (last {got:.7f}); replay ms "
+          f"{[round(t * 1e3, 2) for t in replay_s]}, Circuit enqueue + "
+          f"flush ms {[round(t * 1e3, 2) for t in circuit_s]}")
+    del handle, c
+    torch.cuda.empty_cache()
+
+    # ---- 11.2 double gradient, df64 mode, n = 26 ---------------------------
+    nd = DF64_N
+    h26 = tfim(rq, nd)
+    rq.set_precision("df64")
+    try:
+        theta = np.random.default_rng(300).normal(size=nd * DF64_GRAD_LAYERS)
+        zero_counts(fused_sv, fused_df64)
+        (value, grads), t_grad = wall(lambda: rq.adjoint_grad(
+            ring, nd, sim, theta, h26, return_value=True))
+        print(f"double gradient n={nd}, {DF64_GRAD_LAYERS} layers, "
+              f"{len(theta)} angles (df64 mode, the exact engine): "
+              f"{t_grad * 1e3:.1f} ms, launches (fused, df64) "
+              f"{(fused_sv.LAUNCHES, fused_df64.LAUNCHES)}")
+        prog = rq.compile_program(rq.trace_kernel(ring, nd, *theta), sim,
+                                  observable=h26)
+        ks = np.random.default_rng(12).choice(len(theta), 4, replace=False)
+        shifted = shift_gradient(rq, prog, theta, ks)
+        worst = float(np.abs(grads[ks] - shifted).max())
+        print(f"double gradient vs parameter shift (df64 replays) at angles "
+              f"{ks.tolist()}: worst abs diff {worst:.2e}")
+        check(worst <= DF64_GRAD_ATOL, f"double parameter shift: {worst}")
+        del prog
+        rq.set_precision("double")
+        circ = rq.Circuit(nd, sim)
+        for op in rq.trace_kernel(ring, nd, *theta).ops:
+            circ._enqueue(op.name, op.targets, op.controls, op.params)
+        exact = circ.expval(h26)
+        del circ
+        rel = abs(value - exact) / abs(exact)
+        print(f"double gradient value {value:.15f} vs exact double Circuit "
+              f"{exact:.15f}: rel diff {rel:.2e}")
+        check(rel <= DOUBLE_ENERGY_RTOL, f"double value {value} vs {exact}")
+
+        # one df64 replay of phase 7's first request
+        rq.set_precision("df64")
+        theta7 = np.random.default_rng(200).normal(size=nd * ANSATZ_LAYERS)
+        prog = rq.compile_program(rq.trace_kernel(ring, nd, *theta7), sim,
+                                  observable=h26)
+        got = prog.run()
+        rel = abs(got - df64_energy) / abs(df64_energy)
+        print(f"compile_program df64 n={nd}: {got:.15f} vs phase 7 "
+              f"{df64_energy:.15f}, rel diff {rel:.2e}")
+        check(rel <= DF64_REPLAY_RTOL, f"df64 replay {got}")
+        del prog
+    finally:
+        rq.set_precision("single")
+    torch.cuda.empty_cache()
+
+    # ---- 11.4 VQE-H2 on the card ------------------------------------------
+    from scipy.optimize import minimize
+
+    def ansatz(q, t0, t1, t2, t3):
+        q.ry(t0, 0)
+        q.ry(t1, 1)
+        q.cx(0, 1)
+        q.ry(t2, 0)
+        q.ry(t3, 1)
+
+    h2 = rq.PauliOperator({"I": -0.4804 + 0.7137, "Z0": 0.3435,
+                           "Z1": -0.4347, "Z0 Z1": 0.5716, "X0 X1": 0.0910,
+                           "Y0 Y1": 0.0910})
+    h2_sim = rq.Simulator(seed=0, device=dev)
+    x0 = np.random.default_rng(0).uniform(0, 2 * np.pi, 4)
+    result, t_vqe = wall(lambda: minimize(
+        fun=lambda x: rq.adjoint_grad(rq.kernel(ansatz), 2, h2_sim, x, h2,
+                                      return_value=True),
+        x0=x0, method="L-BFGS-B", jac=True, options={"maxiter": 200}))
+    err = abs(result.fun - VQE_H2_ENERGY)
+    print(f"VQE-H2 on {dev}: {result.fun:.6f} Ha (target {VQE_H2_ENERGY}, "
+          f"error {err:.2e}), {result.nfev} energy+gradient evaluations in "
+          f"{t_vqe:.2f} s")
+    check(err <= VQE_H2_ATOL, f"VQE-H2 energy {result.fun}")
+    print(f"gradient phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

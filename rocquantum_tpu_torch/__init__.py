@@ -1,6 +1,7 @@
 """rocquantum_tpu_torch — the rocquantum_tpu state-vector Circuit path
-(single, double and double-float precision) on PyTorch, with hand-written
-CUDA fused-layer kernels for NVIDIA Hopper.
+(single, double and double-float precision), its kernel front end, compiled
+programs and adjoint gradients on PyTorch, with hand-written CUDA
+fused-layer kernels for NVIDIA Hopper.
 
 The JAX package ``rocquantum_tpu`` beside it is the reference this package
 is tested against; this package imports neither it nor jax.
@@ -9,7 +10,11 @@ is tested against; this package imports neither it nor jax.
 from . import config
 from .config import df64_enabled, get_precision, set_precision  # noqa: F401
 
-from .api import Simulator, Circuit, PauliOperator  # noqa: F401
+from .api import (  # noqa: F401
+    Simulator, Circuit, PauliOperator, CompiledProgram, compile_program,
+    QuantumProgram, kernel, Kernel, adjoint, trace_kernel, build, get_expval,
+    expval_on_state, grad, make_energy_fn, adjoint_grad,
+)
 from .compiler.ir import CircuitIR, GateOp, ParamRef  # noqa: F401
 
 __version__ = "0.1.0"

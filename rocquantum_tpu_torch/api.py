@@ -1,5 +1,6 @@
 """The rocq programming model on PyTorch: Simulator / Circuit /
-PauliOperator.
+PauliOperator / kernel / build / get_expval / adjoint / compile_program /
+grad / adjoint_grad.
 
 Counterpart of ``rocquantum_tpu/api.py`` for a circuit on one device,
 unsharded and unbatched. ``Circuit`` queues gates and ``flush()`` replays
@@ -13,11 +14,17 @@ returns the full pair. Mid-circuit ``measure`` reduces on the device,
 draws on the host from the simulator's numpy generator (the same draws as
 the JAX package for the same seed) and collapses on the device; ``sample``
 draws on the device from a seeded ``torch.Generator``.
+
+``@kernel`` functions are traced into a CircuitIR by a recorder;
+``compile_program`` captures a flush's plan once and replays it;
+``adjoint_grad`` differentiates a kernel's energy with the O(1)-memory
+reversible sweep (autodiff.py) through ``torch.autograd``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,9 +33,12 @@ from . import config
 from .compiler.interpreter import (compile_df64_fused_ir, compile_pair32_ir,
                                    init_real, init_real64, parametrize,
                                    run_ops_f64)
-from .compiler.ir import CircuitIR, GateOp
+from .compiler.ir import CircuitIR, GateOp, ParamRef
+from .compiler.passes import adjoint_ir
+from .compiler.qasm import to_qasm3
 from .compiler.sharded_schedule import elide_swaps, unpermute_ops
 from .ops import pairsim
+from .utils.cache import BoundedCache
 
 
 def default_device() -> torch.device:
@@ -39,6 +49,16 @@ def default_device() -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+def _zero_state(n: int, device, precision: str, df64: bool):
+    """|0...0> as the state a Circuit carries in ``precision``: a real
+    float32 plane, a real float64 plane for the double-float engine, else
+    the full float64 pair of the exact engine."""
+    if precision == "single":
+        return init_real(n, device), None
+    re = init_real64(n, device)
+    return (re, None) if df64 else (re, torch.zeros_like(re))
 
 
 class Simulator:
@@ -250,13 +270,9 @@ class Circuit(_GateMethods):
         real float32 plane, a real float64 plane for the double-float
         engine, else the full float64 pair the exact engine carries."""
         if self._state is None:
-            n = self.num_qubits
-            if config.get_precision() == "single":
-                self._state = (init_real(n, self.device), None)
-            else:
-                re = init_real64(n, self.device)
-                self._state = (re, None) if config.df64_enabled() \
-                    else (re, torch.zeros_like(re))
+            self._state = _zero_state(self.num_qubits, self.device,
+                                      config.get_precision(),
+                                      config.df64_enabled())
         return self._state
 
     def _is_f64(self) -> bool:
@@ -297,28 +313,35 @@ class Circuit(_GateMethods):
                                        is_adjoint))
         self._is_dirty = True
 
-    def flush(self):
-        """Run the queued gates (reference api.py:74-89): SWAPs become
+    def _flush_plan(self):
+        """``(run, values, layout)`` for the queued gates: SWAPs become
         layout relabels, concrete angles become a parameter vector (float32
         on a float32 state, float64 on a float64 one) so structurally equal
-        flushes share one cached plan."""
-        if not self._is_dirty or not self._gate_queue:
-            return
+        flushes share one cached plan; ``run(state, values) -> state`` runs
+        it on the engine the state's precision selects."""
         ops, values = parametrize(self._gate_queue)
-        ops, self._layout = elide_swaps(ops, self._layout)
+        ops, layout = elide_swaps(ops, self._layout)
         ir = CircuitIR(self.num_qubits, ops)
         if not self._is_f64():
             fn = compile_pair32_ir(ir, fuse=self._fuse,
                                    max_fuse=self._max_fuse)
-            self._state = tuple(fn(self.state,
-                                   np.asarray(values, np.float32)))
-        elif config.df64_enabled():
+            return (lambda state, p: tuple(fn(state, p)),
+                    np.asarray(values, np.float32), layout)
+        values = np.asarray(values, np.float64)
+        if config.df64_enabled():
             fn = compile_df64_fused_ir(ir, fuse=self._fuse,
                                        max_fuse=self._max_fuse)
-            self._state = fn(self.state, np.asarray(values, np.float64))
-        else:
-            self._state = run_ops_f64(*self.state, ops,
-                                      np.asarray(values, np.float64))
+            return fn, values, layout
+        return (lambda state, p: run_ops_f64(*state, ops, p), values,
+                layout)
+
+    def flush(self):
+        """Run the queued gates (reference api.py:74-89) through
+        :meth:`_flush_plan`."""
+        if not self._is_dirty or not self._gate_queue:
+            return
+        run, values, self._layout = self._flush_plan()
+        self._state = run(self.state, values)
         self._gate_queue.clear()
         self._is_dirty = False
 
@@ -489,3 +512,383 @@ class PauliOperator:
 
     def __rmul__(self, scalar: float):
         return self.__mul__(scalar)
+
+
+class CompiledProgram:
+    """A structure-cached end-to-end program: |0..0> -> circuit ->
+    (optionally) an observable readback, the serving hot path (reference
+    api.py:876-941).
+
+    ``compile_program`` captures what a Circuit flush plans (the engine's
+    run function over the cached plan, the parameter vector, the final
+    layout) and how its start state is made, once; ``run()`` replays them
+    with no re-enqueue and no re-hash. ``run(params)`` overrides the
+    parameter VALUES (the structure, parameter count included, is fixed at
+    compile time)."""
+
+    def __init__(self, circuit: "Circuit", plan, init_fn, params,
+                 observable: Optional["PauliOperator"]):
+        self._circ = circuit
+        self._plan = plan
+        self._init_fn = init_fn
+        self._params = params
+        self._obs = observable
+
+    @property
+    def num_params(self) -> int:
+        return int(self._params.shape[0])
+
+    def run(self, params: Optional[Sequence[float]] = None):
+        """Execute the program from |0..0>. Returns ``expval(observable)``
+        as a float when an observable was given, else the (stateful)
+        Circuit handle positioned at the final state for readbacks."""
+        c = self._circ
+        p = self._params
+        if params is not None:
+            p = np.asarray(params, dtype=self._params.dtype)
+            if p.shape != self._params.shape:
+                raise ValueError(
+                    f"expected {self._params.shape[0]} parameter values, "
+                    f"got {p.shape}")
+        run, layout = self._plan
+        c._state = run(self._init_fn(), p)
+        c._layout = list(layout)
+        c._gate_queue.clear()
+        c._is_dirty = False
+        if self._obs is None:
+            return c
+        return c.expval(self._obs)
+
+
+def compile_program(ir: CircuitIR, simulator: Optional[Simulator] = None,
+                    observable: Optional["PauliOperator"] = None,
+                    mesh=None, fuse: bool = True,
+                    max_fuse: int = 2) -> CompiledProgram:
+    """Compile ``ir`` (concrete parameters only) into a
+    :class:`CompiledProgram` on the simulator's device. The precision in
+    force now fixes the engine and the start state of every run."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "compile_program(mesh=...) needs the sharded engine, which this "
+            "package does not have yet")
+    if any(isinstance(p, ParamRef) for op in ir.ops for p in op.params):
+        raise ValueError(
+            "compile_program needs fully-concrete parameters (found "
+            "ParamRef slots); use QuantumProgram.update_params for "
+            "recorder-managed parameter vectors")
+    sim = simulator if simulator is not None else Simulator()
+    c = Circuit(ir.num_qubits, sim, fuse=fuse, max_fuse=max_fuse)
+    for op in ir.ops:
+        c._enqueue(op.name, op.targets, op.controls, op.params, op.matrix,
+                   op.is_adjoint)
+    init_fn = functools.partial(_zero_state, ir.num_qubits, c.device,
+                                config.get_precision(),
+                                config.df64_enabled())
+    run, values, layout = c._flush_plan()
+    return CompiledProgram(c, (run, tuple(layout)), init_fn, values,
+                           observable)
+
+
+class _Recorder(_GateMethods):
+    """Records a kernel's gate calls into a CircuitIR without executing
+    (reference api.py:420-479 walked the kernel's AST instead, and only
+    recognized h/cx/rx)."""
+
+    def __init__(self, num_qubits: int):
+        self.num_qubits = num_qubits
+        self.ops: List[GateOp] = []
+
+    def _enqueue(self, name, targets, controls=(), params=(), matrix=None,
+                 is_adjoint=False):
+        self.ops.append(GateOp(name.upper(), tuple(targets), tuple(controls),
+                               tuple(params), matrix, is_adjoint))
+
+    # recorder has no device state: measure unsupported inside pure kernels
+    def measure(self, *_a, **_k):
+        raise NotImplementedError(
+            "mid-circuit measurement inside a traced kernel is not "
+            "supported; use Circuit.measure between kernel segments")
+
+
+def trace_kernel(kernel_func: Callable, num_qubits: int, *args) -> CircuitIR:
+    """Trace a kernel function into a CircuitIR."""
+    rec = _Recorder(num_qubits)
+    func = getattr(kernel_func, "__wrapped__", kernel_func)
+    func(rec, *args)
+    return CircuitIR(num_qubits, rec.ops,
+                     name=getattr(kernel_func, "__name__", "kernel"))
+
+
+class QuantumProgram:
+    """A built program: IR + (optionally) an executed Circuit
+    (reference api.py:372-417)."""
+
+    def __init__(self, name: str, num_qubits: int, ir: Optional[CircuitIR] = None,
+                 kernel_func=None, static_args=None, simulator_ref=None):
+        self.name = name
+        self.num_qubits = num_qubits
+        self.ir = ir if ir is not None else CircuitIR(num_qubits, name=name)
+        self.circuit_ref: Optional[Circuit] = None
+        self._kernel_func = kernel_func
+        self._static_args = static_args
+        self._simulator_ref = simulator_ref
+
+    @property
+    def mlir_string(self) -> str:  # compat: textual IR instead of MLIR
+        return self.ir.dump()
+
+    def dump(self):
+        print(self.ir.dump())
+
+    def to_qasm(self) -> str:
+        return to_qasm3(self.ir)
+
+    def update_params(self, *params):
+        """Re-execute the kernel with new parameters against a reset state
+        (reference api.py:391-417). Hits the plan cache since the circuit
+        structure is unchanged."""
+        if self.circuit_ref is None:
+            if self._simulator_ref and self._kernel_func:
+                self.circuit_ref = Circuit(self.num_qubits, self._simulator_ref)
+            else:
+                raise RuntimeError(
+                    "Cannot update params: circuit_ref is None and no "
+                    "simulator/kernel info to rebuild.")
+        if not self._kernel_func:
+            raise RuntimeError(
+                "Cannot update params: Kernel function not stored in "
+                "QuantumProgram.")
+        self.circuit_ref.reset()
+        kernel_args = [self.circuit_ref]
+        if self._static_args:
+            kernel_args.extend(self._static_args)
+        kernel_args.extend(params)
+        func = getattr(self._kernel_func, "__wrapped__", self._kernel_func)
+        func(*kernel_args)
+        self.circuit_ref.flush()
+
+    def __repr__(self):
+        return (f"<QuantumProgram name='{self.name}' "
+                f"num_qubits={self.num_qubits}>\nIR:\n{self.ir.dump()}")
+
+
+def kernel(func: Callable) -> Callable:
+    """Mark a function as a quantum kernel (reference api.py:420-479). The
+    kernel body is traced by calling it with a recorder; ``generate_ir``
+    returns the textual circuit IR (the conceptual-MLIR analog)."""
+
+    def generate_ir(kernel_args, kernel_kwargs=None):
+        num_qubits = kernel_args[0]
+        ir = trace_kernel(func, num_qubits, *kernel_args[1:])
+        return ir.dump()
+
+    func.generate_ir = generate_ir
+    func.generate_mlir = generate_ir  # compat alias
+    func.__is_rocq_kernel__ = True
+    return func
+
+
+def build(kernel_func: Callable, num_qubits: int, simulator: Simulator,
+          *args) -> QuantumProgram:
+    """Build + eagerly execute a kernel into a QuantumProgram
+    (reference api.py:482-517)."""
+    if not hasattr(kernel_func, "generate_ir") and not callable(kernel_func):
+        raise TypeError(
+            "The function provided to build() must be decorated with "
+            "@rocq.kernel")
+    name = getattr(kernel_func, "__name__", "kernel")
+    program = QuantumProgram(name, num_qubits,
+                             kernel_func=kernel_func,
+                             static_args=None,
+                             simulator_ref=simulator)
+    try:
+        program.ir = trace_kernel(kernel_func, num_qubits, *args)
+    except NotImplementedError:
+        pass  # kernels with mid-circuit measurement can't be pre-traced
+
+    if simulator is not None:
+        if not isinstance(simulator, Simulator):
+            raise TypeError(
+                "A valid rocQ Simulator object is required if execution is "
+                "expected.")
+        program.circuit_ref = Circuit(num_qubits, simulator)
+        func = getattr(kernel_func, "__wrapped__", kernel_func)
+        func(program.circuit_ref, *args)
+        program.circuit_ref.flush()
+    return program
+
+
+def expval_on_state(state, terms) -> float:
+    """Evaluate a PauliOperator term list on a float-pair state ``(re,
+    im_or_None)`` (reference api.py:1200-1220 takes a complex array):
+    ``pairsim.expval_terms_pair``, float64 accumulation."""
+    re, im = state
+    terms_key = tuple(tuple(ops) for ops, _ in terms)
+    coeffs = [float(c) for _, c in terms]
+    return float(pairsim.expval_terms_pair(re, im, terms_key, coeffs))
+
+
+def get_expval(program: QuantumProgram, hamiltonian: PauliOperator) -> float:
+    """Expectation of ``hamiltonian`` on the program's executed state
+    (reference api.py:520-643)."""
+    if not isinstance(program, QuantumProgram) or not isinstance(
+            program.circuit_ref, Circuit):
+        raise TypeError(
+            "Input must be a QuantumProgram object with an executed "
+            "circuit_ref for get_expval.")
+    circuit = program.circuit_ref
+    if not isinstance(hamiltonian, PauliOperator):
+        raise TypeError("Input hamiltonian must be a rocQ PauliOperator object.")
+    return circuit.expval(hamiltonian)  # handles the qubit layout
+
+
+class Kernel:
+    """A named circuit IR (reference api.py:646-652 holds an MLIR string)."""
+
+    def __init__(self, name: str, ir: Optional[CircuitIR] = None,
+                 mlir_string: str = ""):
+        self.name = name
+        self.ir = ir if ir is not None else CircuitIR(0, name=name)
+        self.mlir_string = mlir_string or self.ir.dump()
+
+    def __str__(self):
+        return f"<Kernel name='{self.name}'>\n{self.ir.dump()}"
+
+
+def adjoint(kern: Union[Kernel, Callable]) -> Union[Kernel, Callable]:
+    """Adjoint of a kernel: reversed ops, each daggered (reference
+    api.py:654-692, AdjointGeneration.cpp). Accepts a Kernel (returns a
+    Kernel) or a @kernel function (returns a new @kernel function)."""
+    if isinstance(kern, Kernel):
+        adj_ir = adjoint_ir(kern.ir)
+        return Kernel(name=f"{kern.name}.adj", ir=adj_ir)
+    if callable(kern):
+        base = getattr(kern, "__wrapped__", kern)
+
+        def adj_func(q, *args):
+            rec = _Recorder(q.num_qubits)
+            base(rec, *args)
+            ir = adjoint_ir(CircuitIR(q.num_qubits, rec.ops))
+            for op in ir.ops:
+                q._enqueue(op.name, op.targets, op.controls, op.params,
+                           op.matrix, is_adjoint=op.is_adjoint)
+
+        adj_func.__name__ = getattr(kern, "__name__", "kernel") + "_adj"
+        return kernel(adj_func)
+    raise TypeError("Input to adjoint must be a Kernel object or a @kernel "
+                    "function.")
+
+
+def grad(kernel_func: Callable, num_qubits: int, simulator: Simulator,
+         initial_params: Sequence[float], observable: PauliOperator) -> np.ndarray:
+    """Parameter-shift gradient, ported verbatim from the reference for
+    API parity (api.py:694-734): dE/dθᵢ = 0.5·(E(θᵢ+π/2) − E(θᵢ−π/2)).
+    Prefer :func:`adjoint_grad` — one reversible forward+backward sweep
+    instead of 2P circuit executions."""
+    if not hasattr(kernel_func, "generate_ir") and not callable(kernel_func):
+        raise TypeError(
+            "The function provided to grad() must be decorated with "
+            "@rocq.kernel")
+    gradients = []
+    params = np.array(initial_params, dtype=float)
+    for i in range(len(params)):
+        params_plus = params.copy()
+        params_plus[i] += np.pi / 2.0
+        params_minus = params.copy()
+        params_minus[i] -= np.pi / 2.0
+        prog_plus = build(kernel_func, num_qubits, simulator, *params_plus)
+        expval_plus = get_expval(prog_plus, observable)
+        prog_minus = build(kernel_func, num_qubits, simulator, *params_minus)
+        expval_minus = get_expval(prog_minus, observable)
+        gradients.append(0.5 * (expval_plus - expval_minus))
+    return np.array(gradients)
+
+
+# ---------------------------------------------------------------------------
+# Adjoint (reverse-mode) differentiation — the fast path
+# ---------------------------------------------------------------------------
+
+_ADJ_CACHE = BoundedCache()
+
+
+def make_energy_fn(kernel_func: Callable, num_qubits: int,
+                   hamiltonian: PauliOperator, num_params: int,
+                   reversible: Optional[bool] = None, device=None):
+    """``energy(params) -> 0-d float64 tensor`` for a kernel + Hamiltonian
+    on ``device`` (default: the card); ``torch.autograd.grad`` of it, or
+    ``.backward()``, is true adjoint differentiation: one forward and one
+    backward sweep instead of 2P circuit executions.
+
+    ``reversible`` (default: auto) selects the O(1)-memory backward sweep
+    (autodiff.make_reversible_execute): intermediates are RECONSTRUCTED by
+    inverse gates instead of stored, so memory stays a few state planes
+    whatever the depth. In single precision it runs the fused kernel both
+    ways; in double precision (``"double"`` and ``"df64"``, as the JAX
+    package differentiates its exact float64 pair engine) the exact
+    complex128 engine. Auto falls back to plain autograd (``energy``,
+    autodiff.execute_plain) only when the kernel body cannot be traced
+    with symbolic ParamRef arguments (it does host arithmetic on the
+    parameters).
+    """
+    from . import autodiff
+
+    device = torch.device(device) if device is not None \
+        else default_device()
+    exact = config.get_precision() == "double"
+    if reversible is None or reversible:
+        try:
+            return autodiff.reversible_energy_fn(
+                kernel_func, num_qubits, hamiltonian, num_params, device,
+                exact)
+        except (TypeError, AttributeError):
+            # ParamRef has no arithmetic: the body computes on its
+            # parameters
+            if reversible:
+                raise
+
+    terms = tuple(tuple(ops) for ops, _ in hamiltonian.terms)
+    coeffs = tuple(float(c) for _, c in hamiltonian.terms)
+    func = getattr(kernel_func, "__wrapped__", kernel_func)
+
+    def energy(param_vec):
+        rec = _Recorder(num_qubits)
+        func(rec, *[param_vec[i] for i in range(num_params)])
+        state = autodiff.execute_plain(rec.ops, param_vec, num_qubits,
+                                       device, config.complex_dtype())
+        return pairsim.energy_pair(state.real, state.imag, terms, coeffs)
+
+    return energy
+
+
+def adjoint_grad(kernel_func: Callable, num_qubits: int, simulator: Simulator,
+                 initial_params: Sequence[float], observable: PauliOperator,
+                 return_value: bool = False):
+    """Gradient by adjoint differentiation on the simulator's device: the
+    energy function is made once per (kernel structure, observable,
+    precision, device) and differentiated by ``torch.autograd.grad``.
+    Returns numpy, as the JAX package does."""
+    values = np.asarray(initial_params, dtype=float)
+    # Key on the kernel's traced circuit STRUCTURE, not id(func): id() is
+    # reused after GC, so a new kernel could silently hit a dead kernel's
+    # energy function. Tracing with concrete host params is cheap (pure
+    # Python) and gives the exact structure energy() will re-trace.
+    rec = _Recorder(num_qubits)
+    func = getattr(kernel_func, "__wrapped__", kernel_func)
+    func(rec, *[float(p) for p in values])
+    ir_key = CircuitIR(num_qubits, rec.ops).structural_key()
+    key = (ir_key, num_qubits, repr(observable), values.shape[0],
+           config.get_precision(), str(simulator.device))
+    fn = _ADJ_CACHE.get(key)
+    if fn is None:
+        fn = make_energy_fn(kernel_func, num_qubits, observable,
+                            values.shape[0], device=simulator.device)
+        _ADJ_CACHE[key] = fn
+    params = torch.tensor(values, dtype=config.real_dtype(),
+                          requires_grad=True)
+    value = fn(params)
+    (grads,) = torch.autograd.grad(value, params, allow_unused=True)
+    grads = np.zeros(values.shape, params.dtype) if grads is None \
+        else grads.numpy()
+    if return_value:
+        return float(value.detach()), grads
+    return grads

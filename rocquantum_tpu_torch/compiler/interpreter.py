@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,6 +37,7 @@ from ..ops import fused_sv
 from ..ops import gates as _g
 from ..ops import relabel
 from ..ops import statevec as sv
+from ..utils.cache import BoundedCache
 from .ir import CircuitIR, GateOp, ParamRef
 from .passes import (DiagBlock, FusedBlock, PallasBlock, fuse_diagonals,
                      fuse_pallas_runs, plan_fusion)
@@ -526,13 +526,23 @@ def init_real64(n: int, device) -> torch.Tensor:
 
 
 def plan_items(ops: Sequence, n: int, fuse: bool = True,
-               max_fuse: int = 2) -> list:
+               max_fuse: int = 2, every_run: bool = False) -> list:
     """The structure-only plan of a gate list: PallasBlocks for the fused
-    kernel (n >= KERNEL_MIN_QUBITS), then DiagBlocks and FusedBlocks."""
+    kernel (n >= KERNEL_MIN_QUBITS), then DiagBlocks and FusedBlocks.
+
+    A run of kernel-eligible gates becomes a block as the JAX package's
+    flush decides it (at least 6 gates, out-of-window gates split off when
+    that plans fewer passes), or, with ``every_run``, whatever its length
+    and qubits: the gradient's backward sweep (autodiff.py) runs each
+    one-gate and each short parameter-free step on the kernel."""
     items = list(ops)
     if n >= KERNEL_MIN_QUBITS:
-        items = fuse_pallas_runs(items, n - 1, num_qubits=n,
-                                 relabel_reach=fused_sv.window_bits(n))
+        if every_run:
+            items = fuse_pallas_runs(items, n - 1, min_gates=1,
+                                     num_qubits=n)
+        else:
+            items = fuse_pallas_runs(items, n - 1, num_qubits=n,
+                                     relabel_reach=fused_sv.window_bits(n))
     if fuse:
         items = fuse_diagonals(items)
         items = plan_fusion(items, max_fuse=max_fuse)
@@ -602,30 +612,7 @@ def parametrize(ops: Sequence[GateOp]):
     return new_ops, values
 
 
-class _PlanCache:
-    """Bounded LRU map from circuit structure to its compiled run."""
-
-    def __init__(self, maxsize: int = 256):
-        self._maxsize = maxsize
-        self._data: OrderedDict = OrderedDict()
-
-    def get(self, key):
-        if key not in self._data:
-            return None
-        self._data.move_to_end(key)
-        return self._data[key]
-
-    def put(self, key, value):
-        self._data[key] = value
-        self._data.move_to_end(key)
-        while len(self._data) > self._maxsize:
-            self._data.popitem(last=False)
-
-    def clear(self):
-        self._data.clear()
-
-
-_PLAN_CACHE = _PlanCache()
+_PLAN_CACHE = BoundedCache()
 
 
 def _plan_key(ir: CircuitIR, *extra):
@@ -636,24 +623,26 @@ def _plan_key(ir: CircuitIR, *extra):
     return (ir.structural_key(), baked) + extra
 
 
-def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2):
+def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
+                      every_run: bool = False):
     """Return ``run((re, im_or_None), params, device=None) -> (re,
     im_or_None)`` for this IR: the plan is made once and cached by
     structural key (plus any concrete parameter values, which the plan
-    bakes in). ``device`` places a state started from ``re=None``."""
-    key = _plan_key(ir, fuse, max_fuse)
+    bakes in). ``device`` places a state started from ``re=None``;
+    ``every_run`` is :func:`plan_items`'."""
+    key = _plan_key(ir, fuse, max_fuse, every_run)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         return cached
     n = ir.num_qubits
-    items = plan_items(list(ir.ops), n, fuse, max_fuse)
+    items = plan_items(list(ir.ops), n, fuse, max_fuse, every_run)
 
     def run(pair, params, device=None):
         re, im = pair
         return run_items(re, im, items, params, n,
                          device=device if re is None else re.device)
 
-    _PLAN_CACHE.put(key, run)
+    _PLAN_CACHE[key] = run
     return run
 
 
@@ -677,7 +666,7 @@ def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
         return dfm.state_to_pair_f64(run_items_df64(planes, items, params,
                                                     n))
 
-    _PLAN_CACHE.put(key, run)
+    _PLAN_CACHE[key] = run
     return run
 
 

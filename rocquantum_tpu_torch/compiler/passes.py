@@ -1,6 +1,9 @@
 """IR transformation passes, a jax-free copy of
 ``rocquantum_tpu/compiler/passes.py``.
 
+- :func:`adjoint_ir` — the adjoint-generation transform: ops in reverse
+  order, each with its ``is_adjoint`` flag toggled (the reference
+  AdjointGenerationPass, AdjointGeneration.cpp:26-110).
 - :func:`fuse_pallas_runs` — collect runs of kernel-eligible gates (1q, CNOT,
   controlled 1q, two-qubit diagonals) into :class:`PallasBlock` s that the
   fused-layer kernel (ops/fused_sv.py) applies in few passes.
@@ -22,7 +25,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
-from .ir import GateOp
+from .ir import CircuitIR, GateOp
+
+
+def adjoint_ir(ir: CircuitIR) -> CircuitIR:
+    """Return the adjoint circuit: reversed op order, each op daggered."""
+    out = CircuitIR(ir.num_qubits, name=f"{ir.name}.adj")
+    for op in reversed(ir.ops):
+        out.ops.append(dataclasses.replace(op, is_adjoint=not op.is_adjoint))
+    return out
 
 
 @dataclasses.dataclass

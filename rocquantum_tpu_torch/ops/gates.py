@@ -3,6 +3,10 @@
 Counterpart of ``rocquantum_tpu/ops/gates.py``. The port builds gate
 coefficients on the host from the parameter values and ships them to the
 device in one table per kernel pass, so the builders here are numpy.
+:func:`gate_matrix_t` is their differentiable torch twin (the JAX package
+gets one for free by tracing its builders): the gradient takes dU/dθ from
+it, and so does the plain per-op energy of kernels that do host arithmetic
+on their parameters.
 
 Matrix convention for multi-target gates: for ``targets=[t0, t1, ...]`` the
 row/column index has ``t0`` as the least significant bit.
@@ -11,6 +15,7 @@ row/column index has ``t0`` as the least significant bit.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _SQRT1_2 = 1.0 / np.sqrt(2.0)
 
@@ -88,3 +93,71 @@ def gate_matrix(name: str, params=()) -> np.ndarray:
 
 def is_parameterized(name: str) -> bool:
     return name.upper() in PARAMETERIZED
+
+
+# -- differentiable twin (torch, complex128) ----------------------------------
+
+_C128 = torch.complex128
+
+
+def _angle(p) -> torch.Tensor:
+    """A parameter as a float64 tensor (kept in autograd's graph when it
+    is one)."""
+    if isinstance(p, torch.Tensor):
+        return p.to(torch.float64)
+    return torch.tensor(float(p), dtype=torch.float64)
+
+
+def _mat(rows) -> torch.Tensor:
+    return torch.stack([torch.stack([torch.as_tensor(e).to(_C128)
+                                     for e in row]) for row in rows])
+
+
+def _rx_t(theta):
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    return _mat([[c, -1j * s], [-1j * s, c]])
+
+
+def _ry_t(theta):
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    return _mat([[c, -s], [s, c]])
+
+
+def _rz_t(theta):
+    zero = torch.zeros((), dtype=_C128)
+    return _mat([[torch.exp(-0.5j * theta), zero],
+                 [zero, torch.exp(0.5j * theta)]])
+
+
+def _phase_t(lam):
+    zero = torch.zeros((), dtype=_C128)
+    return _mat([[torch.ones((), dtype=_C128), zero],
+                 [zero, torch.exp(1j * lam)]])
+
+
+def _rzz_t(theta):
+    em, ep = torch.exp(-0.5j * theta), torch.exp(0.5j * theta)
+    return torch.diag(torch.stack([em, ep, ep, em]))
+
+
+def _u3_t(theta, phi, lam):
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    return _mat([[c, -torch.exp(1j * lam) * s],
+                 [torch.exp(1j * phi) * s, torch.exp(1j * (phi + lam)) * c]])
+
+
+_PARAMETERIZED_T = {
+    "RX": _rx_t, "RY": _ry_t, "RZ": _rz_t, "P": _phase_t, "PHASE": _phase_t,
+    "U3": _u3_t, "RZZ": _rzz_t,
+}
+
+
+def gate_matrix_t(name: str, params=()) -> torch.Tensor:
+    """:func:`gate_matrix` as a complex128 CPU tensor, differentiable in
+    ``params`` (floats or tensors)."""
+    key = name.upper()
+    if key in FIXED:
+        return torch.from_numpy(FIXED[key])
+    if key in _PARAMETERIZED_T:
+        return _PARAMETERIZED_T[key](*(_angle(p) for p in params))
+    raise ValueError(f"Unknown gate name: {name}")

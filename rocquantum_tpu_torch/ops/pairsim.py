@@ -102,6 +102,55 @@ def expval_terms_pair(re, im, terms, coeffs) -> torch.Tensor:
     return total
 
 
+def hamiltonian_pair(re, im, terms, coeffs):
+    """H|psi> = sum_k coeffs[k] P_k |psi> as planes in the state's dtype,
+    accumulated one term at a time: two planes for the sum (one while the
+    state is real, whose imaginary part is then not formed) and one or two
+    for the term in hand."""
+    h_re = torch.zeros_like(re)
+    h_im = None if im is None else torch.zeros_like(im)
+    for term, c in zip(terms, coeffs):
+        pre, pim = re, im
+        for ch, q in term:
+            if ch != "I":
+                pre, pim = _apply_pauli(pre, pim, ch, int(q))
+        h_re.add_(pre, alpha=float(c))
+        if h_im is not None and pim is not None:
+            h_im.add_(pim, alpha=float(c))
+        del pre, pim
+    return h_re, h_im
+
+
+class _Energy(torch.autograd.Function):
+    """<psi|H|psi> with the cotangent that jax.grad forms for it:
+    dE/d(re, im) = 2 H|psi> on the planes. Autograd does not trace the
+    readout (each term's copies would be saved, about two planes a term);
+    the backward builds H|psi> from the saved planes instead."""
+
+    @staticmethod
+    def forward(ctx, re, im, terms, coeffs):
+        ctx.save_for_backward(re, im)
+        ctx.terms, ctx.coeffs = terms, coeffs
+        return expval_terms_pair(re, im, terms, coeffs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        re, im = ctx.saved_tensors
+        h_re, h_im = hamiltonian_pair(re, im, ctx.terms, ctx.coeffs)
+        scale = (2 * grad).to(re.dtype)
+        h_re.mul_(scale)
+        if h_im is not None:
+            h_im.mul_(scale)
+        return h_re, h_im, None, None
+
+
+def energy_pair(re, im, terms, coeffs) -> torch.Tensor:
+    """:func:`expval_terms_pair` as a float64 0-d tensor that autograd
+    differentiates with respect to the planes (:class:`_Energy`)."""
+    return _Energy.apply(re, im, tuple(tuple(t) for t in terms),
+                         tuple(float(c) for c in coeffs))
+
+
 def prob_one_pair(re, im, qubit: int) -> torch.Tensor:
     """P(qubit = 1)."""
     _, one = _bit_halves(probs_pair(re, im), qubit)

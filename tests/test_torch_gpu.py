@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain-torch versions: the
 fused-layer kernels (f32 and df64), the index-bit rotation copy and the
-two tensor-core region dots.
+two tensor-core region dots; and the paths that launch them: Circuit,
+compile_program and the adjoint gradient.
 
 Marked ``gpu``: these tests need a CUDA device and skip without one. This
 file imports no jax, so on a machine without JAX it runs on its own:
@@ -529,3 +530,79 @@ def test_df64_circuit_on_the_card_matches_cpu(cuda, df64_mode, name,
                         plain)
     want = _run(ir, torch.device("cpu"), theta)
     np.testing.assert_allclose(got, want, atol=1e-13)
+
+
+def _ring_kernel(q, *theta):
+    n = q.num_qubits
+    for layer in range(len(theta) // n):
+        for qq in range(n):
+            q.ry(theta[layer * n + qq], qq)
+        for qq in range(n):
+            q.cx(qq, (qq + 1) % n)
+
+
+def _tfim(n):
+    terms = {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}
+    terms.update({f"X{q}": -0.5 for q in range(n)})
+    return rq.PauliOperator(terms)
+
+
+def _value_and_grad(n, theta, device):
+    energy = rq.make_energy_fn(rq.kernel(_ring_kernel), n, _tfim(n),
+                               len(theta), device=device)
+    p = torch.tensor(theta, dtype=torch.float32, requires_grad=True)
+    value = energy(p)
+    (g,) = torch.autograd.grad(value, p)
+    return float(value.detach()), g.numpy()
+
+
+def test_reversible_gradient_on_the_card_matches_plain_layers(cuda):
+    """The sweep's forward and every U^dagger step launch the fused kernel;
+    the same sweep with the plain layer function agrees."""
+    n = 20
+    theta = np.random.default_rng(20).normal(size=3 * n)
+    before = fused_sv.LAUNCHES
+    value, grads = _value_and_grad(n, theta, cuda)
+    launches = fused_sv.LAUNCHES - before
+    # the forward's passes, then two one-gate passes per angle at least
+    assert launches >= 2 * len(theta)
+    with _plain_layers():
+        want_v, want_g = _value_and_grad(n, theta, cuda)
+    assert fused_sv.LAUNCHES - before == launches
+    assert abs(value - want_v) <= 1e-5 * abs(want_v)
+    np.testing.assert_allclose(grads, want_g, atol=1e-4)
+
+
+def test_compile_program_replay_on_the_card_matches_circuit(cuda):
+    n = 20
+    ir = hardware_efficient_ansatz_ir(n, 2)
+    theta = np.random.default_rng(4).normal(size=ir.num_params)
+    bound = rq.trace_kernel(rq.kernel(_ring_kernel), n, *theta)
+    obs = _tfim(n)
+    prog = rq.compile_program(bound, rq.Simulator(device=cuda),
+                              observable=obs)
+    before = fused_sv.LAUNCHES
+    first, again = prog.run(), prog.run()
+    assert fused_sv.LAUNCHES > before
+    c = rq.Circuit(n, rq.Simulator(device=cuda))
+    for op in bound.ops:
+        c._enqueue(op.name, op.targets, op.controls, op.params)
+    want = c.expval(obs)
+    assert abs(first - again) <= 1e-9 * abs(first)
+    assert abs(first - want) <= 1e-6 * abs(want)
+
+
+def test_adjoint_grad_on_a_cuda_simulator_launches_the_fused_kernel(cuda):
+    n = 16
+    theta = np.random.default_rng(6).normal(size=n)
+    before = (fused_sv.LAUNCHES, fused_df64.LAUNCHES)
+    value, grads = rq.adjoint_grad(rq.kernel(_ring_kernel), n,
+                                   rq.Simulator(device=cuda), theta,
+                                   _tfim(n), return_value=True)
+    assert fused_sv.LAUNCHES - before[0] >= 2 * n
+    assert fused_df64.LAUNCHES == before[1]
+    cpu_v, cpu_g = rq.adjoint_grad(rq.kernel(_ring_kernel), n,
+                                   rq.Simulator(device="cpu"), theta,
+                                   _tfim(n), return_value=True)
+    assert abs(value - cpu_v) <= 1e-5 * abs(cpu_v)
+    np.testing.assert_allclose(grads, cpu_g, atol=1e-4)

@@ -99,6 +99,37 @@ print("ok")
 """
 
 
+# the front end, the adjoint gradient and compile_program at the
+# kernel-routing width (the fused layer's plain version on the CPU)
+_GRADIENT = _BLOCK_JAX + r"""
+import numpy as np
+import rocquantum_tpu_torch as rq
+from rocquantum_tpu_torch.solvers import VQE_Solver
+
+@rq.kernel
+def ring(q, *theta):
+    for k, t in enumerate(theta):
+        q.ry(t, k)
+    for k in range(15):
+        q.cx(k, (k + 1) % 15)
+
+h = rq.PauliOperator({"Z0 Z1": -1.0, "X3": -0.5, "Y4 Y5": 0.25})
+sim = rq.Simulator(device="cpu")
+theta = np.linspace(-1.0, 1.0, 15)
+value, grads = rq.adjoint_grad(ring, 15, sim, theta, h, return_value=True)
+prog = rq.compile_program(rq.trace_kernel(ring, 15, *theta), sim,
+                          observable=h)
+assert abs(prog.run() - value) < 1e-5, (prog.run(), value)
+shift = np.zeros(15)
+shift[3] = np.pi / 2
+ps = 0.5 * (prog.run(theta + shift) - prog.run(theta - shift))
+assert abs(grads[3] - ps) < 1e-4, (grads[3], ps)
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -114,6 +145,10 @@ def test_bell_circuit_runs_with_jax_blocked():
 
 def test_df64_circuit_runs_with_jax_blocked():
     _run_blocked(_DF64)
+
+
+def test_gradient_and_compiled_program_run_with_jax_blocked():
+    _run_blocked(_GRADIENT)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
