@@ -5,7 +5,7 @@ Run from the repository root, with one CUDA device visible:
 
     python3 chip_profile.py
 
-Six measurements, printed between two lines of the card's name and power
+Seven measurements, printed between two lines of the card's name and power
 limit:
 
   1. Where the time of one energy request goes: a ring ansatz (8 RY-column
@@ -39,6 +39,12 @@ limit:
      precision at n = 29 (8 layers) and under set_precision("df64") at
      n = 26 (2 layers, the exact engine); after a warm-up gradient, one
      runs under torch.profiler, reported as in section 1.
+  7. Where the time of one density request goes: DensityCircuit(14) in
+     single precision, bench.py:485's workload (2 layers of RY on every
+     qubit, then depolarizing(0.02) on every qubit) flushed and read out
+     (<Z_q> of every qubit and a TFIM expectation, as chip_smoke.py phase
+     12 does); after a warm-up request, one runs under torch.profiler,
+     reported as in section 1.
 
 Needs CUDA; without it, exits non-zero and prints nothing else.
 """
@@ -51,6 +57,7 @@ import time
 LAYERS = 8
 F32_N = 29
 DF64_N = 26
+DENSITY_N = 14
 SCAN_K = (1, 4, 16, 64)
 REPS = 10
 # f32 pass planner geometries compared: (reach, max_pairs)
@@ -175,6 +182,39 @@ def profile_gradient(label, rq, n, layers, sim):
     torch.cuda.empty_cache()
 
 
+def profile_density(rq, n, sim):
+    """Section 7: one warm f32 density request under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    hamiltonian = rq.PauliOperator(
+        {f"Z{q} Z{(q + 1) % n}": -1.0 for q in range(n)}) + \
+        rq.PauliOperator({f"X{q}": -0.5 for q in range(n)})
+    circ = rq.DensityCircuit(n, sim)
+
+    def density_request():
+        circ.reset()
+        for _ in range(2):
+            for q in range(n):
+                circ.ry(0.3 + 0.01 * q, q)
+            circ.apply_channel("depolarizing", 0.02, list(range(n)))
+        for q in range(n):
+            circ.expval(rq.PauliOperator(f"Z{q}"))
+        circ.expval(hamiltonian)
+        torch.cuda.synchronize()
+
+    density_request()  # warm-up: plans
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        density_request()
+        wall = time.perf_counter() - t0
+    report(f"[density] one request at n={n} (a {2 * n}-bit view), 2 "
+           f"layers", "density", prof, wall)
+    del circ
+    torch.cuda.empty_cache()
+
+
 def scan(label, n, layer, make_planes, gates, wide=()):
     """ms per pass of ``layer(planes, specs)`` for K gates from
     ``gates(K, pair_bits, complex)`` (RY on the real carry, random unitaries
@@ -288,6 +328,7 @@ def main():
     rq.set_precision("df64")
     profile_gradient("double gradient", rq, DF64_N, 2, sim)
     rq.set_precision("single")
+    profile_density(rq, DENSITY_N, sim)
     print(f"card: {smi_line()}")
     return 0
 

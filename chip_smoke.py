@@ -50,6 +50,18 @@ Phases:
      torch.matmul in full float32 and the bound; seven RY gates on qubits
      0-6 at n = 29 as one composed lane dot and as one fused-kernel pass,
      held against each other and timed in turns;
+  12. the density engine (since its port): DensityCircuit(14), a
+     2n = 28-bit view, in single precision answering 3 requests of
+     bench.py:485's workload (2 layers of RY on every qubit then
+     depolarizing(0.02) on every qubit; <Z_q> of every qubit and a TFIM
+     expectation) against the closed form and one request on the plain
+     layers; a complex carry (H, RZ, a CNOT ring, a CRZ, amplitude
+     damping and phase flip on every qubit) against the plain layers,
+     its trace and Hermiticity on the card, a measure and a further
+     flush, 4096 shots; the same requests under set_precision("df64")
+     against the closed form, and at n = 12 the whole rho against
+     set_precision("double")'s exact engine; flush times, planned passes,
+     launches, ms per pass beside its bound, peak memory.
   11. the kernel front end, compiled programs and adjoint gradients: a
      @kernel ring ansatz at n = 29 (8 layers, 232 angles) differentiated by
      adjoint_grad against phase 4's energy, parameter shift through
@@ -62,9 +74,11 @@ Phases:
      df64 ansatz (phase 7's energy); VQE-H2 (examples/vqe_h2.py) with
      L-BFGS-B on the card.
 
-Each path (phases 4, 7, 9 and 11's gradient, and the probe's R = 2^17 call
-of each dot) runs with every launch count set to 0 just before it and read
-just after.
+Each path (phases 4, 7, 9, 11's gradient and 12's f32 and df64 requests,
+and the probe's R = 2^17 call of each dot) runs with every launch count
+set to 0 just before it and read just after; the kernels line gives phase
+12's counts as "density_launches" and its ms per pass of the density
+plans as "density_ms".
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -110,6 +124,18 @@ DF64_REPLAY_RTOL = 1e-12
 QFT_REPLAYS = 5
 VQE_H2_ENERGY = -1.13728  # ROADMAP "Source paper"; examples/vqe_h2.py
 VQE_H2_ATOL = 2e-3
+DENSITY_N = 14        # the JAX bench's largest density width (bench.py:477)
+DENSITY_LAYERS = 2    # bench.py:485: RY on every qubit, then depolarizing
+DENSITY_P = 0.02
+DENSITY_ANGLES = (0.3, 0.5, 0.7)  # three requests: RY(a + 0.01 q)
+DENSITY_TOL = 1e-5        # f32: <Z_q>, trace, kernel vs plain / max|rho|
+DENSITY_PURITY_RTOL = 1e-4
+DENSITY_HERMITIAN_TOL = 1e-6  # of max|rho|
+DENSITY_SHOTS = 4096
+DENSITY_FRACTION_TOL = 0.03
+DENSITY_DF64_TOL = 1e-12  # df64: <Z_q> and trace vs the closed form
+DENSITY_EXACT_N = 12
+DENSITY_EXACT_TOL = 1e-11  # df64 rho vs the exact double engine
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -551,6 +577,9 @@ def main():
     lane, row = probe_phase(region_dot, fused_sv, gen, dev)
     gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
                    requests, phase4_energies, df64_energy, dev)
+    density, density_ms = density_phase(rq, interpreter, PallasBlock,
+                                        fused_sv, fused_df64, df64, rotate,
+                                        region_dot, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -564,18 +593,23 @@ def main():
         "bound_ms": f32_bound,
         "bound_by": f32_bound_by,
         "library_ms": None,
+        "density_launches": density["fused_layer"],
+        "density_ms": density_ms["fused_layer"],
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
         "source": "rocquantum_tpu_torch/csrc/fused_sv.cu",
         "replaces": "rocquantum_tpu/ops/pallas_sv.py:1667",
         **init,
+        "density_launches": density["fused_layer_init"],
     }, {
         "name": "fused_layer_df64",
         "route": "cuda",
         "source": "rocquantum_tpu_torch/csrc/fused_df64.cu",
         "replaces": "rocquantum_tpu/ops/pallas_df64.py:240",
         **df,
+        "density_launches": density["fused_layer_df64"],
+        "density_ms": density_ms["fused_layer_df64"],
     }, {
         "name": "rotate_bits",
         "route": "cuda",
@@ -1481,6 +1515,365 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
           f"{t_vqe:.2f} s")
     check(err <= VQE_H2_ATOL, f"VQE-H2 energy {result.fun}")
     print(f"gradient phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def density_bench(c, base):
+    """bench.py:485's workload: per layer RY(base + 0.01 q) on every
+    qubit, then depolarizing on every qubit."""
+    n = c.num_qubits
+    for _ in range(DENSITY_LAYERS):
+        for q in range(n):
+            c.ry(base + 0.01 * q, q)
+        c.apply_channel("depolarizing", DENSITY_P, list(range(n)))
+
+
+def density_closed_form(n, base):
+    """(<Z_q>, purity, TFIM energy) of density_bench from |0><0|: a
+    product state whose Bloch vectors turn by the RY angles in the x-z
+    plane and shrink by 1 - 4p/3 per depolarizing layer."""
+    import numpy as np
+    shrink = (1 - 4 * DENSITY_P / 3) ** DENSITY_LAYERS
+    theta = DENSITY_LAYERS * (base + 0.01 * np.arange(n))
+    z, x = shrink * np.cos(theta), shrink * np.sin(theta)
+    purity = float(np.prod((1 + z * z + x * x) / 2))
+    energy = float(-np.sum(z * np.roll(z, -1)) - 0.5 * np.sum(x))
+    return z, purity, energy
+
+
+def density_complex(c):
+    """The complex carry: H and RZ on every qubit, a CNOT ring, a CRZ,
+    amplitude damping and phase flip on every qubit (kinds U, CNOT, CU and
+    D2 on both halves of the 2n-bit view)."""
+    n = c.num_qubits
+    for q in range(n):
+        c.h(q)
+        c.rz(0.1 + 0.05 * q, q)
+    for q in range(n):
+        c.cx(q, (q + 1) % n)
+    c.crz(0.7, 0, n - 1)
+    c.apply_channel("amplitude_damping", 0.05, list(range(n)))
+    c.apply_channel("phase_flip", 0.03, list(range(n)))
+
+
+def density_plan(interpreter, PallasBlock, ir, kernel, df):
+    """(passes, names of ops outside a kernel block) of a density flush's
+    2n-view IR: ``passes`` as [(specs, gate table, pair bits,
+    real_flags)], planned on the carry each block needs (complex once a
+    gate is complex); the angles are 0, which changes no plan."""
+    import numpy as np
+    n2 = ir.num_qubits
+    params = np.zeros(max(ir.num_params, 1))
+    specs_of = interpreter.pallas_block_specs_df64 if df \
+        else interpreter.pallas_block_specs
+    passes, outside, complex_carry = [], [], False
+    for item in interpreter.plan_items(ir.ops, n2):
+        if not isinstance(item, PallasBlock):
+            members = getattr(item, "ops", [item])
+            outside.append(f"{type(item).__name__}("
+                           + ", ".join(op.name for op in members) + ")")
+            complex_carry = True
+            continue
+        kinds, supports, gm, flags = specs_of(item, params)
+        complex_carry = complex_carry or not all(flags)
+        for p in interpreter.kernel_plan(n2, kinds, supports, kernel,
+                                         complex_carry=complex_carry):
+            passes.append((tuple((kinds[i],) + tuple(pos) for i, pos in
+                                 zip(p.gate_idx, p.positions)),
+                           gm[list(p.gate_idx)], p.pair_bits,
+                           [flags[i] for i in p.gate_idx]))
+    return passes, outside
+
+
+def density_pass_turns(layer, plain, planes, passes, err_of):
+    """Every pass of a density plan through the kernel wrapper against its
+    plain version on ``planes`` (the worst error, as ``err_of(got,
+    want)``), then the passes timed in turns: (worst, [plain, kernel,
+    kernel, plain] ms per pass)."""
+    import torch
+    worst = 0.0
+    for specs, g, pb, fl in passes:
+        want = plain(*planes, specs, g, real_flags=fl)
+        got = layer(*[None if p is None else p.clone() for p in planes],
+                    specs, g, pair_bits=pb, real_flags=fl)
+        torch.cuda.synchronize()
+        worst = max(worst, err_of(got, want))
+        del want, got
+
+    def chain(fn):
+        x = [tuple(None if p is None else p.clone() for p in planes)]
+
+        def run(reps):
+            for _ in range(reps):
+                for specs, g, pb, fl in passes:
+                    x[0] = fn(*x[0], specs, g, pair_bits=pb, real_flags=fl)
+            return reps * len(passes)
+        return run
+
+    return worst, time_turns(chain(layer), chain(plain), 10)
+
+
+def hermitian_err(re, im, n):
+    """max|rho - rho†| on the card, from the planes and their transposed
+    (2^n, 2^n) views."""
+    dim = 1 << n
+    err = float((re.view(dim, dim) - re.view(dim, dim).T).abs().max())
+    if im is not None:
+        err = max(err, float((im.view(dim, dim)
+                              + im.view(dim, dim).T).abs().max()))
+    return err
+
+
+def max_abs(re, im):
+    return max(float(re.abs().max()),
+               0.0 if im is None else float(im.abs().max()))
+
+
+def density_phase(rq, interpreter, PallasBlock, fused_sv, fused_df64, df64,
+                  rotate, region_dot, dev):
+    """Phase 12: the density engine at n = 14 (a 28-bit view) in single
+    precision and df64. Returns the density path's launches by kernel and
+    the kernels' ms per pass of its plans."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.ops import pairdm
+
+    t_phase = time.perf_counter()
+    gib = 1 << 30
+    n = DENSITY_N
+    n2 = 2 * n
+    ops = DENSITY_LAYERS * 2 * n  # the bench's count: a gate or a channel
+    sim = rq.Simulator(seed=12, device=dev)
+    hamiltonian = tfim(rq, n)
+
+    def request(c, base):
+        """One request: reset, queue, flush (timed), read <Z_q>, the TFIM
+        energy, the trace and the purity."""
+        c.reset()
+        density_bench(c, base)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        c.flush()
+        stop.record()
+        torch.cuda.synchronize()
+        t_flush = time.perf_counter() - t0
+        re, im = c.state
+        z = np.array([c.expval(rq.PauliOperator(f"Z{q}"))
+                      for q in range(n)])
+        return {"wall": t_flush, "event_ms": start.elapsed_time(stop),
+                "z": z, "energy": c.expval(hamiltonian),
+                "trace": float(pairdm.trace_pair_dm(re, n)),
+                "purity": c.purity(), "real": im is None}
+
+    def report(label, answers, tol, launches):
+        for base, a in zip(DENSITY_ANGLES, answers):
+            z, purity, energy = density_closed_form(n, base)
+            z_err = float(np.abs(a["z"] - z).max())
+            p_rel = abs(a["purity"] - purity) / purity
+            e_rel = abs(a["energy"] - energy) / abs(energy)
+            print(f"density {label} n={n} request RY({base} + 0.01 q): "
+                  f"flush {a['wall'] * 1e3:.3f} ms (events "
+                  f"{a['event_ms']:.3f} ms) = {ops / a['wall']:.1f} ops/s; "
+                  f"max |<Z_q> - closed form| {z_err:.2e}, trace - 1 "
+                  f"{a['trace'] - 1:.2e}, purity rel {p_rel:.2e}, TFIM "
+                  f"{a['energy']:.9f} (rel {e_rel:.2e}), im None "
+                  f"{a['real']}")
+            check(a["real"], f"{label} bench rho stays real")
+            check(z_err <= tol, f"{label} <Z_q> error {z_err}")
+            check(abs(a["trace"] - 1) <= tol, f"{label} trace {a['trace']}")
+            check(p_rel <= DENSITY_PURITY_RTOL, f"{label} purity {p_rel}")
+            check(e_rel <= DENSITY_PURITY_RTOL, f"{label} TFIM {e_rel}")
+        best = min(a["event_ms"] for a in answers)
+        per_request = launches / len(answers)
+        print(f"density {label}: {per_request:.0f} launches a request, best "
+              f"flush {best:.3f} ms (events) = {best / per_request:.4f} ms "
+              f"a launch")
+        return best, per_request
+
+    # ---- 12.1 f32, n = 14: three requests, closed form, plain layers -----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    circ = rq.DensityCircuit(n, sim)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    answers = [request(circ, base) for base in DENSITY_ANGLES]
+    launches = {"fused_layer": fused_sv.LAUNCHES,
+                "fused_layer_init": fused_sv.ZERO_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    check(fused_df64.LAUNCHES == 0, "the f32 density path launched no df64")
+    check(launches["fused_layer"] > 0, "the f32 density path launched "
+          "rocq_fused_pass")
+    check(launches["fused_layer_init"] == len(DENSITY_ANGLES),
+          "each density request started from the fill kernel")
+    best, per_request = report("f32", answers, DENSITY_TOL,
+                               launches["fused_layer"])
+    passes, outside = density_plan(interpreter, PallasBlock, circ.last_ir,
+                                   fused_sv, df=False)
+    bound, bound_by = bound_ms(n2, [(sp, fl) for sp, _, _, fl in passes], 1,
+                               complex_state=False, df=False)
+    print(f"density f32 plan: {len(passes)} planned passes, ops outside a "
+          f"kernel block: {outside or 'none'}; bound per pass {bound:.4f} "
+          f"ms ({bound_by}), {bound * len(passes):.3f} ms a flush; "
+          f"{best / per_request:.4f} ms a launch; the flush bound is "
+          f"{bound * len(passes) / best:.1%} of the flush; peak "
+          f"memory {peak / gib:.3f} GiB; launches {launches}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randn(1 << n2, generator=gen, device=dev)
+    x /= torch.linalg.vector_norm(x)
+    worst, turns = density_pass_turns(
+        fused_sv.apply_fused_layer, fused_sv.apply_fused_layer_reference,
+        (x, None), passes,
+        lambda got, want: max_err(got[0], want[0]) / float(
+            want[0].abs().max()))
+    del x
+    timings = {"fused_layer": min(turns[1], turns[2]),
+               "fused_layer_df64": None}
+    print(f"density f32 passes, kernel vs plain: worst {worst:.2e} of "
+          f"max|x|; ms per pass (plain, kernel, kernel, plain) "
+          f"{[round(t, 4) for t in turns]} beside the bound {bound:.4f}")
+    check(worst <= DENSITY_TOL, f"density f32 passes: {worst}")
+    re, im = circ.state
+    with plain_layers(fused_sv, "apply_fused_layer",
+                      fused_sv.apply_fused_layer_reference):
+        plain = rq.DensityCircuit(n, sim)
+        (_, t_plain) = wall(lambda: request(plain, DENSITY_ANGLES[-1]))
+        pre, pim = plain.state
+    top = max_abs(pre, pim)
+    err = max(max_err(re, pre), max_err(im, pim))
+    print(f"density f32 vs the plain layers on the card (request "
+          f"{DENSITY_ANGLES[-1]}, {t_plain:.2f} s): max abs err {err:.3e} "
+          f"= {err / top:.2e} of max|rho|")
+    check(pim is None and err <= DENSITY_TOL * top, f"f32 plain: {err}")
+    del circ, plain, re, im, pre, pim
+    torch.cuda.empty_cache()
+
+    # ---- 12.2 the complex carry ------------------------------------------
+    circ = rq.DensityCircuit(n, sim)
+    density_complex(circ)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    _, t_cold = wall(circ.flush)
+    complex_launches = fused_sv.LAUNCHES
+    circ.reset()
+    density_complex(circ)
+    _, t_flush = wall(circ.flush)
+    re, im = circ.state
+    check(im is not None, "the complex workload carries im")
+    passes_c, outside_c = density_plan(interpreter, PallasBlock,
+                                       circ.last_ir, fused_sv, df=False)
+    top = max_abs(re, im)
+    herm = hermitian_err(re, im, n)
+    trace = float(pairdm.trace_pair_dm(re, n))
+    with plain_layers(fused_sv, "apply_fused_layer",
+                      fused_sv.apply_fused_layer_reference):
+        plain = rq.DensityCircuit(n, sim)
+        density_complex(plain)
+        pre, pim = plain.state
+    err = max(max_err(re, pre), max_err(im, pim))
+    del plain, pre, pim
+    print(f"density complex carry n={n}: flush {t_flush * 1e3:.3f} ms "
+          f"(first, planning included: {t_cold * 1e3:.3f} ms), "
+          f"{complex_launches} launches, {len(passes_c)} planned passes, "
+          f"outside a kernel block: {outside_c or 'none'}; vs plain layers "
+          f"{err / top:.2e} of max|rho|, trace - 1 {trace - 1:.2e}, "
+          f"Hermitian to {herm / top:.2e} of max|rho|")
+    check(err <= DENSITY_TOL * top, f"complex carry vs plain: {err}")
+    check(abs(trace - 1) <= DENSITY_TOL, f"complex carry trace {trace}")
+    check(herm <= DENSITY_HERMITIAN_TOL * top, f"Hermitian: {herm}")
+    outcome, prob = circ.measure(3)
+    for q in range(n):
+        circ.ry(0.2 + 0.03 * q, q)
+    circ.apply_channel("depolarizing", DENSITY_P, [0, n - 1])
+    circ.flush()
+    re, im = circ.state
+    trace = float(pairdm.trace_pair_dm(re, n))
+    herm = hermitian_err(re, im, n) / max_abs(re, im)
+    qubits = [0, n // 3, 2 * n // 3, n - 1]
+    shots = circ.sample(qubits, DENSITY_SHOTS)
+    marg = pairdm.marginal_probs_pair_dm(re, qubits, n).cpu().numpy()
+    frac = np.bincount(shots, minlength=1 << len(qubits)) / DENSITY_SHOTS
+    worst = float(np.abs(frac - marg).max())
+    print(f"density measure(3) -> {outcome} (p {prob:.6f}), then a flush: "
+          f"trace - 1 {trace - 1:.2e}, Hermitian to {herm:.2e}; "
+          f"{DENSITY_SHOTS} shots on {qubits}: {shots.dtype}, worst "
+          f"fraction error {worst:.4f}")
+    check(abs(trace - 1) <= DENSITY_TOL, f"trace after measure {trace}")
+    check(herm <= DENSITY_HERMITIAN_TOL, f"Hermitian after measure {herm}")
+    check(shots.dtype == np.int32 and shots.shape == (DENSITY_SHOTS,),
+          f"samples {shots.dtype} {shots.shape}")
+    check(worst <= DENSITY_FRACTION_TOL, f"sample fractions {worst}")
+    del circ, re, im
+    torch.cuda.empty_cache()
+
+    # ---- 12.3 df64, n = 14, and n = 12 against the exact engine ------------
+    rq.set_precision("df64")
+    try:
+        circ = rq.DensityCircuit(n, sim)
+        zero_counts(fused_sv, fused_df64, rotate, region_dot)
+        answers = [request(circ, base) for base in DENSITY_ANGLES]
+        launches["fused_layer_df64"] = fused_df64.LAUNCHES
+        check(fused_sv.LAUNCHES == 0, "the df64 density path launched no "
+              "f32 pass")
+        check(fused_df64.LAUNCHES > 0, "the df64 density path launched "
+              "rocq_fused_pass_df64")
+        best, per_request = report("df64", answers, DENSITY_DF64_TOL,
+                                   fused_df64.LAUNCHES)
+        passes_d, outside_d = density_plan(interpreter, PallasBlock,
+                                           circ.last_ir, fused_df64,
+                                           df=True)
+        bound, bound_by = bound_ms(n2, [(sp, fl) for sp, _, _, fl in
+                                        passes_d], 2, complex_state=False,
+                                   df=True)
+        print(f"density df64 plan: {len(passes_d)} planned passes, outside "
+              f"a kernel block: {outside_d or 'none'}; bound per pass "
+              f"{bound:.4f} ms ({bound_by}); {best / per_request:.4f} ms a "
+              f"launch")
+        del circ
+        torch.cuda.empty_cache()
+        x = torch.randn(1 << n2, generator=gen, dtype=torch.float64,
+                        device=dev)
+        planes = df64.state_from_pair_f64(x / torch.linalg.vector_norm(x),
+                                          None)
+        del x
+
+        def promoted(planes):
+            return planes[0].double() + planes[1].double()
+
+        worst, turns = density_pass_turns(
+            fused_df64.apply_fused_layer_df64,
+            fused_df64.apply_fused_layer_df64_reference, planes, passes_d,
+            lambda got, want: max_err(promoted(got), promoted(want))
+            / float(promoted(want).abs().max()))
+        del planes
+        timings["fused_layer_df64"] = min(turns[1], turns[2])
+        print(f"density df64 passes, kernel vs plain: worst {worst:.2e} of "
+              f"max|x|; ms per pass (plain, kernel, kernel, plain) "
+              f"{[round(t, 4) for t in turns]} beside the bound "
+              f"{bound:.4f}")
+        check(worst <= DF64_KERNEL_TOL, f"density df64 passes: {worst}")
+        torch.cuda.empty_cache()
+        nx = DENSITY_EXACT_N
+        df_circ = rq.DensityCircuit(nx, sim)
+        density_bench(df_circ, DENSITY_ANGLES[0])
+        df_re, df_im = df_circ.state
+        rq.set_precision("double")
+        exact = rq.DensityCircuit(nx, sim)
+        density_bench(exact, DENSITY_ANGLES[0])
+        (ex_re, ex_im), t_exact = wall(lambda: exact.state)
+        err = max(max_err(df_re, ex_re),
+                  float(ex_im.abs().max()) if df_im is None
+                  else max_err(df_im, ex_im))
+        print(f"density df64 n={nx} vs the exact double engine "
+              f"({t_exact * 1e3:.1f} ms): max abs err {err:.3e}")
+        check(err <= DENSITY_EXACT_TOL, f"df64 vs exact: {err}")
+        del df_circ, exact, df_re, df_im, ex_re, ex_im
+    finally:
+        rq.set_precision("single")
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    print(f"density phase: {elapsed:.1f} s; density launches {launches}")
+    return launches, timings
 
 
 if __name__ == "__main__":

@@ -55,3 +55,21 @@ def state_from_numpy(re, im, device=None, dtype=np.float32
     out_im = torch.as_tensor(np.ascontiguousarray(im, dtype).reshape(-1),
                              device=device).contiguous()
     return out_re, out_im
+
+
+def density_from_reference(rho, device=None, dtype=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's rho as this package's planes ``(re, im)`` of the
+    flattened ``(4^n,)`` view, row index high: ``rho`` is a complex
+    ``(4^n,)`` or ``(2^n, 2^n)`` array, or the ``(re, im)`` pair of the
+    double engine. ``dtype`` defaults to the input's real precision
+    (float32 for complex64, else float64)."""
+    # copies: the reference's arrays are read-only, the planes are not
+    if isinstance(rho, (tuple, list)):
+        re, im = (np.array(p) for p in rho)
+    else:
+        rho = np.asarray(rho)
+        re, im = np.array(rho.real), np.array(rho.imag)
+    if dtype is None:
+        dtype = np.float32 if re.dtype == np.float32 else np.float64
+    return state_from_numpy(re, im, device=device, dtype=dtype)

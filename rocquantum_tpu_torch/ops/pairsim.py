@@ -201,10 +201,18 @@ def marginal_probs_pair(re, im, qubits: Sequence[int]) -> torch.Tensor:
 def sample_pair(re, im, qubits: Sequence[int], shots: int,
                 generator: torch.Generator) -> torch.Tensor:
     """Draw ``shots`` outcomes (int32, as the JAX package's draws) from the
-    marginal over ``qubits`` by inverse-CDF search on the device."""
-    cdf = torch.cumsum(marginal_probs_pair(re, im, qubits), 0)
+    marginal over ``qubits``."""
+    return sample_marginal(marginal_probs_pair(re, im, qubits), shots,
+                           generator)
+
+
+def sample_marginal(marg: torch.Tensor, shots: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """Draw ``shots`` outcomes (int32) from a probability vector by
+    inverse-CDF search on its device."""
+    cdf = torch.cumsum(marg, 0)
     u = torch.rand(shots, generator=generator, dtype=_F64,
-                   device=re.device) * cdf[-1]
+                   device=marg.device) * cdf[-1]
     out = torch.searchsorted(cdf, u, right=True, out_int32=True)
     return out.clamp_(max=cdf.numel() - 1)
 

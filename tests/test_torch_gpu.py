@@ -606,3 +606,92 @@ def test_adjoint_grad_on_a_cuda_simulator_launches_the_fused_kernel(cuda):
                                    _tfim(n), return_value=True)
     assert abs(value - cpu_v) <= 1e-5 * abs(cpu_v)
     np.testing.assert_allclose(grads, cpu_g, atol=1e-4)
+
+
+def _density_workload(c, layers=1):
+    """The complex-carry density workload of chip_smoke.py phase 12: H and
+    RZ on every qubit, a CNOT ring, a CRZ, amplitude damping and phase
+    flip on every qubit; then bench.py:485's RY + depolarizing layer."""
+    n = c.num_qubits
+    for q in range(n):
+        c.h(q)
+        c.rz(0.1 + 0.05 * q, q)
+    for q in range(n):
+        c.cx(q, (q + 1) % n)
+    c.crz(0.7, 0, n - 1)
+    c.apply_channel("amplitude_damping", 0.05, list(range(n)))
+    c.apply_channel("phase_flip", 0.03, list(range(n)))
+    for _ in range(layers):
+        for q in range(n):
+            c.ry(0.3 + 0.01 * q, q)
+        c.apply_channel("depolarizing", 0.02, list(range(n)))
+    return c
+
+
+def _density_planes(n, device):
+    c = _density_workload(rq.DensityCircuit(n, rq.Simulator(seed=4,
+                                                            device=device)))
+    re, im = c.state
+    return re.clone(), None if im is None else im.clone()
+
+
+@pytest.mark.parametrize("n", [10, 14])
+def test_density_f32_kernel_path_matches_plain_layers(cuda, n):
+    before = fused_sv.LAUNCHES
+    got = _density_planes(n, cuda)
+    assert fused_sv.LAUNCHES > before and got[1] is not None
+    with _plain_layers():
+        mid = fused_sv.LAUNCHES
+        want = _density_planes(n, cuda)
+        assert fused_sv.LAUNCHES == mid
+    top = float(want[0].abs().max())
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * top
+    dim = 1 << n
+    re, im = got
+    assert float((re.view(dim, dim) - re.view(dim, dim).T).abs().max()) \
+        <= 1e-6 * top
+    assert float((im.view(dim, dim) + im.view(dim, dim).T).abs().max()) \
+        <= 1e-6 * top
+
+
+def test_density_df64_kernel_path_matches_plain_layers(cuda, df64_mode,
+                                                       monkeypatch):
+    n = 10
+    before = fused_df64.LAUNCHES
+    got = _density_planes(n, cuda)
+    assert fused_df64.LAUNCHES > before and got[0].dtype == torch.float64
+    monkeypatch.setattr(fused_df64, "apply_fused_layer_df64",
+                        fused_df64.apply_fused_layer_df64_reference)
+    want = _density_planes(n, cuda)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-13
+
+
+def test_density_circuit_on_a_cuda_simulator_launches_the_fused_kernel(
+        cuda):
+    """A DensityCircuit on a CUDA simulator starts from the fill kernel,
+    launches rocq_fused_pass, keeps the bench workload real and lands on
+    the CPU run's rho, measurement included (same seed, same draws)."""
+    n = 8
+    circuits = {}
+    counts = (fused_sv.LAUNCHES, fused_sv.ZERO_LAUNCHES, fused_df64.LAUNCHES)
+    for dev in (cuda, torch.device("cpu")):
+        c = rq.DensityCircuit(n, rq.Simulator(seed=6, device=dev))
+        for q in range(n):
+            c.ry(0.3 + 0.01 * q, q)
+        c.apply_channel("depolarizing", 0.02, list(range(n)))
+        c.flush()
+        assert c.state[1] is None
+        circuits[dev.type] = c
+    assert fused_sv.LAUNCHES > counts[0]
+    assert fused_sv.ZERO_LAUNCHES == counts[1] + 1
+    assert fused_df64.LAUNCHES == counts[2]
+    gpu, cpu = circuits["cuda"], circuits["cpu"]
+    obs = rq.PauliOperator({"Z0": 1.0, "X3 X4": 0.5, "Y1 Y6": -0.25})
+    assert abs(gpu.expval(obs) - cpu.expval(obs)) < 1e-6
+    for q in (1, 5):
+        (og, pg), (oc, pc) = gpu.measure(q), cpu.measure(q)
+        assert og == oc and abs(pg - pc) < 1e-6
+    np.testing.assert_allclose(gpu.get_density_matrix(),
+                               cpu.get_density_matrix(), atol=1e-6)

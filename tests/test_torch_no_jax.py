@@ -130,6 +130,47 @@ print("ok")
 """
 
 
+# the density engine at the kernel-routing width (2n = 16 bits): a noisy
+# flush through the fused layer's plain version, the readouts, a measure,
+# the exact engine and DensityMatrixState
+_DENSITY = _BLOCK_JAX + r"""
+import numpy as np
+import rocquantum_tpu_torch as rq
+from rocquantum_tpu_torch.ops import fused_sv
+
+noise = rq.NoiseModel()
+noise.add_channel("bit_flip", 0.01, after_op="cnot")
+c = rq.DensityCircuit(8, rq.Simulator(seed=3, device="cpu"),
+                      noise_model=noise)
+for q in range(8):
+    c.ry(0.3 + 0.01 * q, q)
+c.apply_channel("depolarizing", 0.02, list(range(8)))
+c.flush()
+assert c.state[1] is None
+want = np.cos(0.3) * (1 - 0.08 / 3)
+assert abs(c.expval(rq.PauliOperator("Z0")) - want) < 1e-5
+c.cx(0, 1)
+c.rz(0.4, 2)
+c.apply_channel("amplitude_damping", 0.05, [3])
+rho = c.get_density_matrix()
+assert abs(np.trace(rho) - 1) < 1e-5 and np.allclose(rho, rho.conj().T,
+                                                     atol=1e-6)
+assert 0 < c.purity() < 1
+outcome, p = c.measure(2)
+assert 0 < p <= 1 and c.sample([0, 1], 50).dtype == np.int32
+rq.set_precision("double")
+st = rq.DensityMatrixState(2, device="cpu")
+st.apply_h(0)
+st.apply_cnot(0, 1)
+st.apply_depolarizing_channel([0, 1], 0.05)
+assert abs(st._compute_z_product_expectation([0, 1])
+           - (1 - 0.2 / 3) ** 2) < 1e-12
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -149,6 +190,10 @@ def test_df64_circuit_runs_with_jax_blocked():
 
 def test_gradient_and_compiled_program_run_with_jax_blocked():
     _run_blocked(_GRADIENT)
+
+
+def test_density_engine_runs_with_jax_blocked():
+    _run_blocked(_DENSITY)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
