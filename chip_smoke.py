@@ -73,6 +73,20 @@ Phases:
      the QFT at n = 26 (against Circuit runs, timed beside them) and of the
      df64 ansatz (phase 7's energy); VQE-H2 (examples/vqe_h2.py) with
      L-BFGS-B on the card.
+  13. tensor networks and the df64 readout twins (since their port): the
+     df64 twins on phase 7's n = 26 state (expval_terms_df64 of the TFIM
+     against the Circuit's energy, norm2_df64, prob_one_df64 and
+     collapse_df64, 20000 int32 draws of sample_df64 against the marginal)
+     and compile_df64_ir of a 2-layer ansatz at n = 22 against the fused
+     flush, run inside phase 7; then bench.py's ring A(a,b) B(b,c) C(c,a)
+     -> scalar at d = 8192 through TensorNetwork with num_slices 4, timed
+     beside its FP32 bound and one torch.einsum, against complex128, and
+     again under set_precision("double"); the precision guard (a d = 8192
+     GEMM through the executor with TF32 off and under
+     torch.set_float32_matmul_precision("high")); memory-limited slicing
+     of a 512 MiB output under a limit of 1/64 of it (allocator peak and
+     the executor's tally) and contracted-index slicing of a d = 8192
+     scalar contraction; tensor_svd of a (64, 64, 64, 64) tensor.
 
 Each path (phases 4, 7, 9, 11's gradient and 12's f32 and df64 requests,
 and the probe's R = 2^17 call of each dot) runs with every launch count
@@ -136,6 +150,21 @@ DENSITY_FRACTION_TOL = 0.03
 DENSITY_DF64_TOL = 1e-12  # df64: <Z_q> and trace vs the closed form
 DENSITY_EXACT_N = 12
 DENSITY_EXACT_TOL = 1e-11  # df64 rho vs the exact double engine
+TWIN_TOL = 1e-12          # df64 twins vs the Circuit / the fused flush
+TWIN_SHOTS = 20000
+TWIN_FREQ_TOL = 0.03
+TWIN_IR_N = 22
+TWIN_IR_LAYERS = 2
+TN_DIM = 8192             # bench.py's ring (TN_DIM, TN_SLICES)
+TN_SLICES = 4
+TN_RING_TOL = 1e-5        # |diff| / Cauchy-Schwarz scale, vs complex128
+TN_GUARD_TOL = 5e-5       # max|diff| / max|out| of a d = 8192 GEMM:
+                          # float32 5.7e-6, TF32 2.9e-4 on an H100 80GB HBM3
+TN_SLICE_DIM = 1 << 13    # a 2^26-element (512 MiB) output
+TN_SLICE_K = 16
+TN_SLICE_TOL = 1e-6
+TN_SVD_SHAPE = (64, 64, 64, 64)
+TN_SVD_TOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -146,6 +175,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FP32_INSTR_PER_S = 33.5e12
 TF32_OPS_PER_S = 495e12
+FP64_TC_FLOPS = 67e12     # FP64 on the tensor cores (DMMA)
 
 
 def check(ok, what):
@@ -580,6 +610,7 @@ def main():
     density, density_ms = density_phase(rq, interpreter, PallasBlock,
                                         fused_sv, fused_df64, df64, rotate,
                                         region_dot, dev)
+    tensornet_phase(rq, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -772,10 +803,13 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     launches = fused_df64.LAUNCHES
     check(launches > 0, "the df64 slice launched the df64 kernel")
     check(fused_sv.LAUNCHES == 0, "the df64 slice launched no f32 pass")
+    df64_twins(rq, interpreter, ansatz_ir, df64, pairsim, circ, hamiltonian,
+               answers[-1][0], sim, dev)
+    fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
     with plain_layers(fused_df64, "apply_fused_layer_df64",
                       fused_df64.apply_fused_layer_df64_reference):
         plain = answer(circ, requests[0], True)
-    check(fused_df64.LAUNCHES == launches, "plain run launched no kernel")
+    check(fused_df64.LAUNCHES == 0, "plain run launched no kernel")
     del circ
     rq.set_precision("double")
     exact = answer(rq.Circuit(n, sim), requests[0], False)
@@ -1874,6 +1908,279 @@ def density_phase(rq, interpreter, PallasBlock, fused_sv, fused_df64, df64,
     elapsed = time.perf_counter() - t_phase
     print(f"density phase: {elapsed:.1f} s; density launches {launches}")
     return launches, timings
+
+
+def df64_twins(rq, interpreter, ansatz_ir, df64, pairsim, circ,
+               hamiltonian, energy, sim, dev):
+    """Phase 13, the df64 readout twins, on phase 7's n = 26 state (the
+    last request's, which the df64 kernel produced): the Circuit's float64
+    state split into hi/lo planes, read by the twins against the Circuit's
+    own readout; then compile_df64_ir of a 2-layer ansatz at n = 22 against
+    the fused flush."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    n = circ.num_qubits
+    re, im = circ.state
+    check(im is None, "phase 7's state is a real carry")
+    planes = df64.state_from_pair_f64(re, None)
+    terms = [tuple((p, circ._phys(q)) for p, q in ops)
+             for ops, _ in hamiltonian.terms]
+    coeffs = [float(c) for _, c in hamiltonian.terms]
+    got = float(df64.expval_terms_df64(planes, terms, coeffs))
+    rel = abs(got - energy) / abs(energy)
+    print(f"df64 twins n={n}: expval_terms_df64 {got:.15f} vs the Circuit's "
+          f"{energy:.15f}, rel diff {rel:.3e} (limit {TWIN_TOL:.0e})")
+    check(rel <= TWIN_TOL, f"expval_terms_df64 {got} vs {energy}")
+    norm = float(df64.norm2_df64(planes))
+    q = circ._phys(0)
+    p1 = float(df64.prob_one_df64(planes, q))
+    p1_pair = float(pairsim.prob_one_pair(re, None, q))
+    collapsed = df64.collapse_df64(planes, q, 1)
+    norm_c = float(df64.norm2_df64(collapsed))
+    p1_c = float(df64.prob_one_df64(collapsed, q))
+    print(f"df64 twins: norm2 - 1 = {norm - 1:.3e}; prob_one(q0) {p1:.15f} "
+          f"(pair readout {p1_pair:.15f}); collapsed to 1: norm2 - 1 = "
+          f"{norm_c - 1:.3e}, prob_one - 1 = {p1_c - 1:.3e}")
+    check(abs(norm - 1) <= TWIN_TOL and abs(p1 - p1_pair) <= TWIN_TOL
+          and abs(norm_c - 1) <= TWIN_TOL and abs(p1_c - 1) <= TWIN_TOL
+          and collapsed[2] is None, "df64 norm / prob_one / collapse")
+    del collapsed
+    qubits = [circ._phys(0), circ._phys(1)]
+    draws = df64.sample_df64(planes, qubits, TWIN_SHOTS, sim.generator(dev))
+    marg = pairsim.marginal_probs_pair(re, None, qubits).cpu().numpy()
+    freq = np.bincount(draws.cpu().numpy(), minlength=4) / TWIN_SHOTS
+    gap = float(np.abs(freq - marg).max())
+    print(f"df64 twins: sample_df64 {draws.dtype}, {TWIN_SHOTS} shots, "
+          f"max |freq - marginal| {gap:.4f} (limit {TWIN_FREQ_TOL})")
+    check(draws.dtype == torch.int32 and gap <= TWIN_FREQ_TOL,
+          f"sample_df64 dtype {draws.dtype}, gap {gap}")
+    del planes, draws
+
+    n = TWIN_IR_N
+    ir = ansatz_ir(n, TWIN_IR_LAYERS)
+    theta = np.random.default_rng(300).normal(size=ir.num_params)
+    fused = interpreter.compile_df64_fused_ir(ir)(
+        (interpreter.init_real64(n, dev), None), theta)
+    fn = df64.compile_df64_ir(ir)
+    start = df64.init_df64(n, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(start[0], start[1], None, None, theta)
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t0
+    got_re, got_im = df64.state_to_pair_f64(out)
+    err = max_err(got_re, fused[0])
+    if fused[1] is not None:
+        err = max(err, float(fused[1].abs().max()) if got_im is None
+                  else max_err(got_im, fused[1]))
+    print(f"compile_df64_ir n={n}, {TWIN_IR_LAYERS} layers "
+          f"({len(ir.ops)} ops, op by op) vs the fused flush: max abs err "
+          f"{err:.3e} (limit {TWIN_TOL:.0e}), {t_ops * 1e3:.1f} ms; real "
+          f"carry kept: {out[2] is None}")
+    check(err <= TWIN_TOL and out[2] is None,
+          f"compile_df64_ir error {err}")
+    print(f"df64 twins: {time.perf_counter() - t_phase:.1f} s")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision):
+    """torch's float32 matmul precision inside the block, "highest" (no
+    TF32, the script's setting) after it."""
+    import torch
+    torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision("highest")
+
+
+def best_ms(call, reps=3):
+    """Best of ``reps`` single calls after a warm one, CUDA events."""
+    import torch
+    call()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return min(times)
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, both moved to complex128."""
+    import torch
+    got, want = got.to(torch.complex128), want.to(torch.complex128)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tensornet_phase(rq, dev):
+    """Phase 13: the tensor-network engine on the card (module docstring)."""
+    import torch
+    from rocquantum_tpu_torch.tensornet import (Tensor, TensorNetwork,
+                                                tensor_svd)
+    from rocquantum_tpu_torch.tensornet._native_pathfinder import \
+        pathfinder_name
+
+    t_phase = time.perf_counter()
+    try:
+        import opt_einsum
+        planners = f"greedy, and opt_einsum {opt_einsum.__version__}"
+    except ImportError:
+        planners = "greedy only (no opt_einsum: OPTIMAL and AUTO raise)"
+    print(f"tensornet: pathfinder {pathfinder_name()}; planners {planners}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape, dtype=torch.complex64):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+
+    # ---- 13.1 the bench ring A(a,b) B(b,c) C(c,a) -> scalar ---------------
+    d = TN_DIM
+    mats = [rand(d, d) / d for _ in range(3)]
+
+    def ring(tensors):
+        tn = TensorNetwork(device=dev)
+        for t, labels in zip(tensors, ("ab", "bc", "ca")):
+            tn.add_tensor(Tensor(t, tuple(labels)))
+        return tn
+
+    tn = ring(mats)
+    cfg = {"num_slices": TN_SLICES}
+    value = tn.contract(cfg).data
+    check(tn.last_num_slices >= TN_SLICES and value.shape == (),
+          f"ring slices {tn.last_num_slices}, shape {tuple(value.shape)}")
+    ms = best_ms(lambda: tn.contract(cfg))
+    one_ms = best_ms(lambda: torch.einsum("ab,bc,ca->", *mats))
+    wide = [m.to(torch.complex128) for m in mats]
+    ab = wide[0] @ wide[1]
+    exact = torch.sum(ab * wide[2].T)
+    scale = float(torch.linalg.norm(ab) * torch.linalg.norm(wide[2]))
+    err = abs(complex(value) - complex(exact)) / scale
+    flops = 8.0 * d ** 3 + 8.0 * d ** 2
+    bound = 4.0 * d ** 3 / FP32_INSTR_PER_S * 1e3
+    bytes_ms = 3 * d * d * 8 / HBM_BYTES_PER_S * 1e3
+    print(f"ring d={d} complex64, {tn.last_num_slices} slices: {ms:.3f} ms "
+          f"= {flops / ms / 1e6:.1f} GFLOP/s (8 FLOPs a complex MAC); bound "
+          f"{bound:.1f} ms (4 d^3 FP32 FMA instructions at "
+          f"{FP32_INSTR_PER_S:.3g}/s; bytes {bytes_ms:.2f} ms); one "
+          f"torch.einsum {one_ms:.3f} ms")
+    print(f"ring vs complex128 on the card: |diff| / (|AB| |C|) {err:.3e} "
+          f"(limit {TN_RING_TOL:.0e})")
+    check(err <= TN_RING_TOL, f"ring error {err}")
+    tn = None
+
+    # ---- 13.2 precision guard: A(a,b) B(b,c) against complex128 -----------
+    guard, plain = {}, {}
+    for precision in ("highest", "high"):
+        with matmul_precision(precision):
+            net = TensorNetwork(device=dev)
+            net.add_tensor(Tensor(mats[0], ("a", "b")))
+            net.add_tensor(Tensor(mats[1], ("b", "c")))
+            guard[precision] = rel_err(net.contract().data, ab)
+            plain[precision] = rel_err(mats[0] @ mats[1], ab)
+        print(f"precision guard, float32 matmul precision {precision!r}: "
+              f"executor {guard[precision]:.3e}, plain torch.matmul "
+              f"{plain[precision]:.3e} of max|out| (limit "
+              f"{TN_GUARD_TOL:.0e})")
+    # the plain product under "high" shows that TF32 was on
+    check(max(guard.values()) <= TN_GUARD_TOL < plain["high"],
+          f"precision guard {guard}, plain {plain}")
+    del ab, exact, net
+
+    # ---- 13.3 the ring under set_precision("double") ----------------------
+    rq.set_precision("double")
+    try:
+        tn = ring(wide)
+        value64 = tn.contract(cfg).data
+        ms64 = best_ms(lambda: tn.contract(cfg))
+    finally:
+        rq.set_precision("single")
+    bound64 = 8.0 * d ** 3 / FP64_TC_FLOPS * 1e3
+    print(f"ring d={d} complex128 (set_precision('double')): {ms64:.3f} ms "
+          f"= {flops / ms64 / 1e6:.1f} GFLOP/s; bound {bound64:.1f} ms "
+          f"(FP64 tensor cores {FP64_TC_FLOPS:.3g} FLOP/s); value "
+          f"{complex(value64):.6e}")
+    check(value64.dtype == torch.complex128 and tn.last_num_slices
+          >= TN_SLICES, "double ring")
+    del tn, wide, mats, value64
+
+    # ---- 13.4 memory-limited slicing, a 512 MiB output --------------------
+    a, b = rand(TN_SLICE_DIM, TN_SLICE_K), rand(TN_SLICE_K, TN_SLICE_DIM)
+    tn = TensorNetwork(device=dev)
+    tn.add_tensor(Tensor(a, ("a", "k")))
+    tn.add_tensor(Tensor(b, ("k", "b")))
+    full = tn.contract().data
+    out_bytes = full.numel() * full.element_size()
+    slab = out_bytes // 64
+    limit = {"memory_limit": slab}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = tn.compiled_memory_stats(limit)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    slices = tn.last_num_slices
+    sliced = tn.contract(limit).data
+    err = float((sliced - full).abs().max() / full.abs().max())
+    ms_sliced = best_ms(lambda: tn.contract(limit))
+    ms_full = best_ms(lambda: tn.contract())
+    mib = 1 << 20
+    print(f"slicing {TN_SLICE_DIM}x{TN_SLICE_K} . {TN_SLICE_K}x"
+          f"{TN_SLICE_DIM}: {slices} slices under {slab / mib:.0f} MiB, "
+          f"peak rise {rise / mib:.2f} MiB (output {out_bytes / mib:.0f} MiB "
+          f"+ 4 slabs = {(out_bytes + 4 * slab) / mib:.0f}), tally "
+          f"{stats.temp_size_in_bytes / mib:.2f} MiB; err vs unsliced "
+          f"{err:.3e} of max|out|; sliced {ms_sliced:.3f} ms, unsliced "
+          f"{ms_full:.3f} ms")
+    check(slices >= 64 and rise <= out_bytes + 4 * slab
+          and abs(stats.temp_size_in_bytes - rise) <= slab
+          and err <= TN_SLICE_TOL, "memory-limited slicing")
+    del tn, full, sliced, a, b
+
+    # contracted-index slicing: x(i,j) y(j,i) -> scalar
+    x, y = rand(TN_DIM, TN_DIM), rand(TN_DIM, TN_DIM)
+    tn = TensorNetwork(device=dev)
+    tn.add_tensor(Tensor(x, ("i", "j")))
+    tn.add_tensor(Tensor(y, ("j", "i")))
+    limit = {"memory_limit": TN_DIM * TN_DIM * 8 // 8}
+    got = tn.contract(limit).data
+    slices = tn.last_num_slices
+    want = torch.sum(x.to(torch.complex128) * y.to(torch.complex128).T)
+    scale = float(torch.linalg.norm(x.to(torch.complex128))
+                  * torch.linalg.norm(y.to(torch.complex128)))
+    err = abs(complex(got) - complex(want)) / scale
+    ms_c = best_ms(lambda: tn.contract(limit))
+    print(f"contracted-index slicing x(i,j) y(j,i), d={TN_DIM}: {slices} "
+          f"slices, |diff| / (|x| |y|) vs complex128 {err:.3e} (limit "
+          f"{TN_RING_TOL:.0e}), {ms_c:.3f} ms")
+    check(slices > 1 and got.shape == () and err <= TN_RING_TOL,
+          "contracted-index slicing")
+    del tn, x, y
+
+    # ---- 13.5 tensor_svd of a (64, 64, 64, 64) tensor ----------------------
+    t = Tensor(rand(*TN_SVD_SHAPE), ("a", "b", "c", "d"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, s, v = tensor_svd(t, ["a", "c"], ["b", "d"])
+    torch.cuda.synchronize()
+    t_svd = time.perf_counter() - t0
+    recon = torch.einsum("acs,s,sbd->abcd", u.data, s.data.to(u.data.dtype),
+                         v.data)
+    err = float((recon - t.data).abs().max() / t.data.abs().max())
+    rows = TN_SVD_SHAPE[0] * TN_SVD_SHAPE[2]
+    m = t.data.permute(0, 2, 1, 3).reshape(rows, -1)
+    s_exact = torch.linalg.svdvals(m.to(torch.complex128), driver="gesvd")
+    s_err = float((s.data.double() - s_exact).abs().max() / s_exact.max())
+    print(f"tensor_svd {TN_SVD_SHAPE} as {rows}^2: {t_svd:.2f} s; "
+          f"reconstruction {err:.3e} of max|T| (limit {TN_SVD_TOL:.0e}); "
+          f"singular values vs complex128 {s_err:.3e} of s_max")
+    check(err <= TN_SVD_TOL and s_err <= TN_SVD_TOL, "tensor_svd")
+    print(f"tensornet phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """rocquantum_tpu_torch — the rocquantum_tpu state-vector Circuit path
 (single, double and double-float precision), its kernel front end, compiled
-programs, adjoint gradients and the density-matrix engine (DensityCircuit,
-DensityMatrixState, noise channels, NoiseModel) on PyTorch, with
-hand-written CUDA fused-layer kernels for NVIDIA Hopper.
+programs, adjoint gradients, the density-matrix engine (DensityCircuit,
+DensityMatrixState, noise channels, NoiseModel) and the tensor-network
+engine (``rocquantum_tpu_torch.tensornet``) on PyTorch, with hand-written
+CUDA fused-layer kernels for NVIDIA Hopper.
 
 The JAX package ``rocquantum_tpu`` beside it is the reference this package
 is tested against; this package imports neither it nor jax.

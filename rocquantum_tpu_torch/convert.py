@@ -1,8 +1,9 @@
 """Carry the JAX package's inputs across to this package.
 
-A circuit's "weights" are its IR and its parameter vector. These functions
-turn the reference's objects into the port's, so the tests can feed both
-packages the same thing. They read the reference's fields by name (duck
+A circuit's "weights" are its IR and its parameter vector; a tensor
+network's are its labeled tensors. These functions turn the reference's
+objects into the port's, so the tests can feed both packages the same
+thing. They read the reference's fields by name (duck
 typing) and import nothing from ``rocquantum_tpu``.
 """
 
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from .compiler.ir import CircuitIR, GateOp, ParamRef
+from .tensornet.contraction import TensorNetwork
+from .tensornet.tensor import Tensor
 
 
 def _param(p):
@@ -73,3 +76,27 @@ def density_from_reference(rho, device=None, dtype=None
     if dtype is None:
         dtype = np.float32 if re.dtype == np.float32 else np.float64
     return state_from_numpy(re, im, device=device, dtype=dtype)
+
+
+def df64_from_reference(state, device=None):
+    """The JAX package's df64 state ``(re_hi, re_lo, im_hi, im_lo)`` as
+    this package's four float32 planes on ``device``."""
+    return tuple(torch.as_tensor(np.array(p, np.float32).reshape(-1),
+                                 device=device) for p in state)
+
+
+def tensor_from_reference(t, device=None) -> Tensor:
+    """A JAX-package ``Tensor`` (its ``labels`` and ``data``, dtype kept)
+    as this package's ``Tensor`` on ``device``."""
+    return Tensor(torch.as_tensor(np.array(t.data), device=device),
+                  tuple(t.labels))
+
+
+def network_from_reference(tn, device) -> TensorNetwork:
+    """A JAX-package ``TensorNetwork`` (its tensors and memory limit) as
+    this package's on ``device``."""
+    out = TensorNetwork(memory_limit_bytes=tn.memory_limit_bytes,
+                        device=device)
+    for t in tn.tensors:
+        out.add_tensor(tensor_from_reference(t, device))
+    return out

@@ -16,6 +16,13 @@ im_hi, im_lo)``; ``im_hi = im_lo = None`` carries a real state.
 :func:`apply_op_df64` is the per-op path for flush items that are not
 kernel blocks; gate coefficients are built on the host in numpy complex128
 and split hi/lo there.
+
+The readout twins (:func:`norm2_df64`, :func:`expval_terms_df64`,
+:func:`prob_one_df64`, :func:`sample_df64`, ...) promote the planes to
+float64 through :func:`state_to_pair_f64` and read them with the float64
+readout of ``ops/pairsim.py``, which sums in float64.
+:func:`compile_df64_ir` runs a CircuitIR op by op on df64 planes (the
+twin of the exact engine, with no kernel).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.cache import BoundedCache
+from . import pairsim
 from .statevec import (exposed_view_dims, num_qubits_of, permute_index_bits,
                        swap_index_bits)
 
@@ -243,3 +252,117 @@ def apply_op_df64(planes, op, params=None):
     _, controls, targets = _split_op(op)
     return apply_matrix_df64(planes, _base_matrix(op, params), targets,
                              controls)
+
+
+# ---------------------------------------------------------------------------
+# State and readout twins (promote to float64, then the pair readout)
+# ---------------------------------------------------------------------------
+
+def init_df64(n: int, device=None):
+    """|0...0> as four distinct float32 planes on ``device`` (default: the
+    CUDA device)."""
+    if device is None:
+        from ..api import default_device
+        device = default_device()
+    planes = tuple(torch.zeros(1 << n, dtype=_F32, device=device)
+                   for _ in range(4))
+    planes[0][0] = 1.0
+    return planes
+
+
+def norm2_df64(planes) -> torch.Tensor:
+    return pairsim.norm2_pair(*state_to_pair_f64(planes))
+
+
+def probs_df64(planes) -> torch.Tensor:
+    """|amplitude|^2 in float64."""
+    return pairsim.probs_pair(*state_to_pair_f64(planes))
+
+
+def expval_pauli_product_z_df64(planes, qubits: Sequence[int]
+                                ) -> torch.Tensor:
+    return pairsim.expval_pauli_product_z_pair(*state_to_pair_f64(planes),
+                                               qubits)
+
+
+def expval_pauli_string_df64(planes, ops: Sequence[tuple]) -> torch.Tensor:
+    """<psi| P |psi> on the promoted state (a Pauli's entries are exact in
+    either form)."""
+    return pairsim.expval_pauli_string_pair(*state_to_pair_f64(planes), ops)
+
+
+def expval_terms_df64(planes, terms, coeffs) -> torch.Tensor:
+    """sum_k coeffs[k] * <P_k> (PauliOperator-style terms), float64."""
+    return pairsim.expval_terms_pair(*state_to_pair_f64(planes), terms,
+                                     coeffs)
+
+
+def prob_one_df64(planes, qubit: int) -> torch.Tensor:
+    return pairsim.prob_one_pair(*state_to_pair_f64(planes), qubit)
+
+
+def collapse_df64(planes, qubit: int, outcome: int):
+    """Project onto ``qubit = outcome`` and renormalize: the mask in df64
+    (movement), the norm in float64, the inverse norm split into a (hi,
+    lo) coefficient. A real carry stays real."""
+    out = [None if p is None else p.clone() for p in planes]
+    for p in out:
+        if p is not None:
+            pairsim._bit_halves(p, qubit)[1 - int(outcome)].zero_()
+    norm = float(torch.sqrt(norm2_df64(out)))
+    s = split_f64_host(1.0 / max(norm, 1e-12))
+    rh, rl, ih, il = out
+    a = df_mul((rh, rl), s)
+    if ih is None:
+        return a[0], a[1], None, None
+    b = df_mul((ih, il), s)
+    return a[0], a[1], b[0], b[1]
+
+
+def sample_df64(planes, qubits: Sequence[int], shots: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """``shots`` draws (int32) from the float64 marginal over ``qubits``,
+    from ``generator`` (the simulator's, on the planes' device)."""
+    return pairsim.sample_pair(*state_to_pair_f64(planes), qubits, shots,
+                               generator)
+
+
+# ---------------------------------------------------------------------------
+# Compiled df64 programs
+# ---------------------------------------------------------------------------
+
+_DF64_EXEC_CACHE = BoundedCache()
+
+
+def compile_df64_ir(ir, sharding=None):
+    """``f(rh, rl, ih, il, params) -> planes`` for a CircuitIR: every op in
+    order through :func:`apply_op_df64` (SWAP_BITS and PERMUTE_BITS as
+    index-bit moves), cached by structural key plus the concrete parameters
+    the IR bakes in; ``params`` are the ParamRef values. ``ih = il = None``
+    carries a real state until the first complex gate."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "compile_df64_ir(sharding=...) needs the sharded engine, which "
+            "this package does not have yet")
+    # imported here: the interpreter imports this module
+    from ..compiler.interpreter import (_base_matrix, _complex_planes,
+                                        _host_params, _plan_key)
+    from ..compiler.sharded_schedule import PERMUTE_BITS, SWAP_BITS
+    key = _plan_key(ir)
+    fn = _DF64_EXEC_CACHE.get(key)
+    if fn is not None:
+        return fn
+    ops = list(ir.ops)
+
+    def run(rh, rl, ih, il, params=None):
+        planes = (rh, rl, ih, il)
+        params = _host_params(params)
+        for op in ops:
+            if planes[2] is None and op.name not in (SWAP_BITS, PERMUTE_BITS) \
+                    and np.any(_base_matrix(op, params).imag):
+                planes = _complex_planes(planes)
+            planes = apply_op_df64(planes, op, params)
+        return planes
+
+    _DF64_EXEC_CACHE[key] = run
+    return run

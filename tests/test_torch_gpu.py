@@ -1,7 +1,10 @@
 """The CUDA kernels on the card against their plain-torch versions: the
 fused-layer kernels (f32 and df64), the index-bit rotation copy and the
 two tensor-core region dots; and the paths that launch them: Circuit,
-compile_program and the adjoint gradient.
+compile_program and the adjoint gradient. Also the tensor-network
+executor on the card: float32-grade GEMMs under a global TF32 setting,
+the memory a sliced contraction takes from the allocator, and the native
+pathfinder.
 
 Marked ``gpu``: these tests need a CUDA device and skip without one. This
 file imports no jax, so on a machine without JAX it runs on its own:
@@ -19,6 +22,8 @@ import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir, qft_ir
 from rocquantum_tpu_torch.ops import (df64, fused_df64, fused_sv, region_dot,
                                       relabel, rotate)
+from rocquantum_tpu_torch.tensornet import (Tensor, TensorNetwork,
+                                            _native_pathfinder, tensor_svd)
 
 pytestmark = pytest.mark.gpu
 
@@ -695,3 +700,80 @@ def test_density_circuit_on_a_cuda_simulator_launches_the_fused_kernel(
         assert og == oc and abs(pg - pc) < 1e-6
     np.testing.assert_allclose(gpu.get_density_matrix(),
                                cpu.get_density_matrix(), atol=1e-6)
+
+
+def _random_complex(shape, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=torch.complex64,
+                       device=device)
+
+
+def test_tensornet_gemms_stay_float32_under_tf32(cuda):
+    """torch.set_float32_matmul_precision("high") turns TF32 on for
+    complex64 GEMMs; the executor turns it off around its einsums (about
+    3e-6 of max|out| against complex128 at d = 2048, where TF32 gives
+    ~1e-4) and leaves the caller's setting as it was."""
+    d = 2048
+    a, b = _random_complex((d, d), 1, cuda), _random_complex((d, d), 2, cuda)
+    want = a.to(torch.complex128) @ b.to(torch.complex128)
+    old = torch.backends.cuda.matmul.fp32_precision
+    torch.set_float32_matmul_precision("high")
+    try:
+        tn = TensorNetwork(device=cuda)
+        tn.add_tensor(Tensor(a, ("a", "k")))
+        tn.add_tensor(Tensor(b, ("k", "b")))
+        got = tn.contract().data
+        assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision = old
+    err = float((got.to(torch.complex128) - want).abs().max()
+                / want.abs().max())
+    assert err <= 3e-5, err
+
+
+def test_sliced_contraction_memory_from_the_allocator(cuda):
+    """A 2^24-element output (128 MiB) under a limit of 1/64 of it: the
+    allocator's peak rises over the inputs by at most the output plus 4
+    slabs, and the executor's tally is within one slab of it."""
+    dim, k = 1 << 12, 16
+    a = _random_complex((dim, k), 3, cuda)
+    b = _random_complex((k, dim), 4, cuda)
+    tn = TensorNetwork(device=cuda)
+    tn.add_tensor(Tensor(a, ("a", "k")))
+    tn.add_tensor(Tensor(b, ("k", "b")))
+    want = tn.contract()  # also allocates cuBLAS's workspace
+    out_bytes = dim * dim * 8
+    slab = out_bytes // 64
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = tn.compiled_memory_stats({"memory_limit": slab})
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert tn.last_num_slices >= 64
+    assert rise <= out_bytes + 4 * slab, (rise, out_bytes)
+    assert abs(stats.temp_size_in_bytes - rise) <= slab, (
+        stats.temp_size_in_bytes, rise)
+    got = tn.contract({"memory_limit": slab}).data
+    assert float((got - want.data).abs().max()) <= \
+        1e-6 * float(want.data.abs().max())
+
+
+def test_pathfinder_is_native_on_the_card(cuda):
+    assert _native_pathfinder.pathfinder_name() == "native"
+
+
+def test_tensor_svd_on_the_card_is_float32_grade(cuda):
+    """A 1024^2 complex64 SVD on the card reconstructs its tensor and
+    matches complex128 singular values to float32 grade."""
+    t = Tensor(_random_complex((32, 32, 32, 32), 5, cuda), tuple("abcd"))
+    u, s, v = tensor_svd(t, ["a", "c"])
+    recon = torch.einsum("acs,s,sbd->abcd", u.data, s.data.to(u.data.dtype),
+                         v.data)
+    scale = float(t.data.abs().max())
+    assert float((recon - t.data).abs().max()) <= 1e-4 * scale
+    m = t.data.permute(0, 2, 1, 3).reshape(1024, 1024).to(torch.complex128)
+    exact = torch.linalg.svdvals(m, driver="gesvd")
+    assert float((s.data.double() - exact).abs().max()) <= \
+        1e-4 * float(exact.max())

@@ -171,6 +171,39 @@ print("ok")
 """
 
 
+# a sliced tensor-network contraction (native greedy plan), an SVD, and the
+# df64 readout twins and compile_df64_ir
+_TENSORNET_AND_DF64_READOUT = _BLOCK_JAX + r"""
+import numpy as np
+import torch
+from rocquantum_tpu_torch.compiler.ir import CircuitIR
+from rocquantum_tpu_torch.ops import df64
+from rocquantum_tpu_torch.tensornet import TensorNetwork, tensor_svd
+
+rng = np.random.default_rng(0)
+a = rng.normal(size=(32, 16)).astype(np.complex64)
+b = rng.normal(size=(16, 32)).astype(np.complex64)
+tn = TensorNetwork(device="cpu")
+tn.add_tensor(a, ["a", "k"])
+tn.add_tensor(b, ["k", "b"])
+out = tn.contract({"memory_limit": 32 * 32 * 8 // 8})
+assert tn.last_num_slices == 32  # a in 8 chunks, b in 4
+assert np.allclose(out.to_numpy(), a @ b, atol=1e-4)
+u, s, v = tensor_svd(out, ["a"])
+assert s.shape == (32,) and float(s.data[16]) < 1e-3 * float(s.data[0])
+ir = CircuitIR(4)
+ir.add("H", [0])
+ir.add("CNOT", [1], controls=[0])
+planes = df64.compile_df64_ir(ir)(*df64.init_df64(4, "cpu"))
+energy = df64.expval_terms_df64(planes, [(("Z", 0), ("Z", 1)), (("X", 0),)],
+                                [1.0, 0.5])
+assert abs(float(energy) - 1.0) < 1e-12, float(energy)
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -194,6 +227,10 @@ def test_gradient_and_compiled_program_run_with_jax_blocked():
 
 def test_density_engine_runs_with_jax_blocked():
     _run_blocked(_DENSITY)
+
+
+def test_tensornet_and_df64_readout_run_with_jax_blocked():
+    _run_blocked(_TENSORNET_AND_DF64_READOUT)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
