@@ -87,12 +87,29 @@ Phases:
      of a 512 MiB output under a limit of 1/64 of it (allocator peak and
      the executor's tally) and contracted-index slicing of a d = 8192
      scalar contraction; tensor_svd of a (64, 64, 64, 64) tensor.
+  14. the flat-state engine and the program front ends (since their
+     port): the n = 29 ring ansatz (phase 4's three angle vectors) through
+     compile_ir on a complex64 state, the TFIM energy from the flat state
+     against phase 4's, the request cut into split, kernel blocks and join
+     (CUDA events), peak memory, and the plan's complex-carry passes
+     against the plain version (the first 8), timed beside their bound;
+     the QFT's OpenQASM at n = 26 through Compiler against the closed
+     form; GHZ n = 29 as OpenQASM through set_target("local"), 4096
+     shots; a random circuit at n = 26 with four ops the kernel does not
+     take through QuantumSimulator against the per-op engine; Trotter
+     evolve of the TFIM at n = 26 (10 steps, order 2) against the plain
+     layers; the dsl's QAOA MaxCut at n = 26 against Circuit.expval and
+     its density backend with a NoiseModel at n = 14 against
+     DensityCircuit; a QuantumSimulator QFT at n = 20 in double against
+     the closed form. First (planning) and warm calls are timed apart.
 
-Each path (phases 4, 7, 9, 11's gradient and 12's f32 and df64 requests,
-and the probe's R = 2^17 call of each dot) runs with every launch count
-set to 0 just before it and read just after; the kernels line gives phase
-12's counts as "density_launches" and its ms per pass of the density
-plans as "density_ms".
+Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
+14's ansatz requests, and the probe's R = 2^17 call of each dot) runs
+with every launch count set to 0 just before it and read just after; the
+kernels line gives phase 12's counts as "density_launches" and its ms per
+pass of the density plans as "density_ms", and phase 14's as
+"flat_launches" and its complex pass's times and bound as "flat_ms",
+"flat_plain_ms", "flat_bound_ms" and "flat_max_abs_err".
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -165,6 +182,11 @@ TN_SLICE_K = 16
 TN_SLICE_TOL = 1e-6
 TN_SVD_SHAPE = (64, 64, 64, 64)
 TN_SVD_TOL = 1e-4
+FLAT_CHECKED_PASSES = 8   # flat n = 29 complex passes held to the plain one
+FLAT_PLAIN_PASSES = 3     # of them timed on the plain layers
+TROTTER_STEPS = 10
+FLAT_DOUBLE_N = 20
+FLAT_DOUBLE_TOL = 1e-12   # complex128 QFT vs its closed form
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -611,6 +633,8 @@ def main():
                                         fused_sv, fused_df64, df64, rotate,
                                         region_dot, dev)
     tensornet_phase(rq, dev)
+    flat = flat_phase(rq, interpreter, PallasBlock, fused_sv, fused_df64,
+                      rotate, region_dot, requests, phase4_energies, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -626,6 +650,11 @@ def main():
         "library_ms": None,
         "density_launches": density["fused_layer"],
         "density_ms": density_ms["fused_layer"],
+        "flat_launches": flat["launches"],
+        "flat_ms": flat["ms"],
+        "flat_plain_ms": flat["plain_ms"],
+        "flat_bound_ms": flat["bound_ms"],
+        "flat_max_abs_err": flat["max_abs_err"],
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
@@ -665,6 +694,367 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flat_request_parts(interpreter, sv, fused_sv, fn, plan, theta, n, dev):
+    """One n-qubit request of the flat path cut into its parts, each timed
+    with CUDA events on its own: the split of a complex64 state into
+    planes, the plan's kernel blocks on the planes, the join; and the whole
+    ``fn(state, theta)`` call. Returns ms by part."""
+    import torch
+    params = interpreter._host_params(theta)
+    state = sv.init_state(n, device=dev)
+    out = {"request": best_ms(lambda: fn(state, theta), reps=2),
+           "split": best_ms(lambda: sv.state_to_parts(state), reps=2)}
+    planes = sv.state_to_parts(state)
+    out["join"] = best_ms(lambda: sv.parts_to_state(*planes), reps=2)
+
+    def blocks():
+        re, im = planes
+        for item in plan:
+            re, im = interpreter._apply_pallas_block_pair(re, im, item,
+                                                          params, n)
+
+    out["kernel"] = best_ms(blocks, reps=2)
+    del state, planes
+    torch.cuda.empty_cache()
+    return out
+
+
+def flat_phase(rq, interpreter, PallasBlock, fused_sv, fused_df64, rotate,
+               region_dot, requests, phase4_energies, dev):
+    """Phase 14: the flat-state engine and the program front ends at the
+    main path's widths. Returns the flat path's launches and its complex
+    pass's times and bound at n = 29."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch import core, dsl
+    from rocquantum_tpu_torch.compiler import Compiler
+    from rocquantum_tpu_torch.compiler.ir import GateOp
+    from rocquantum_tpu_torch.compiler.qasm import to_qasm3
+    from rocquantum_tpu_torch.models import (evolve, ghz_ir,
+                                             hardware_efficient_ansatz_ir,
+                                             qft_ir, random_circuit_ir)
+    from rocquantum_tpu_torch.ops import statevec as sv
+    from rocquantum_tpu_torch.simulator import QuantumSimulator
+
+    t_phase = time.perf_counter()
+    gib = 1 << 30
+
+    # ---- 14.1 the ring ansatz through compile_ir, n = 29 -----------------
+    n = ANSATZ_N
+    ir = hardware_efficient_ansatz_ir(n, ANSATZ_LAYERS)
+    fn = interpreter.compile_ir(ir)
+    low, high = interpreter.default_widths(n)
+    plan = interpreter.plan_items(ir.ops, n, low_width=low, high_width=high)
+    check(all(isinstance(item, PallasBlock) for item in plan),
+          "the ansatz plans kernel blocks only")
+    passes, specs_of = [], []
+    theta0 = interpreter._host_params(requests[0])
+    for item in plan:
+        kinds, supports, gm, flags = interpreter.pallas_block_specs(item,
+                                                                    theta0)
+        for kp in interpreter.kernel_plan(n, kinds, supports,
+                                          complex_carry=True):
+            idx = list(kp.gate_idx)
+            specs = tuple((kinds[i],) + tuple(p)
+                          for i, p in zip(idx, kp.positions))
+            specs_of.append((specs, gm[idx], kp.pair_bits,
+                             [flags[i] for i in idx]))
+            passes.append((specs, [flags[i] for i in idx]))
+    hamiltonian = tfim(rq, n)
+    terms = [tuple(ops) for ops, _ in hamiltonian.terms]
+    coeffs = [c for _, c in hamiltonian.terms]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    answers = []
+    for theta in requests:
+        state = sv.init_state(n, device=dev)
+        out, t = wall(lambda: fn(state, theta))
+        del state
+        energy = sum(c * float(sv.expval_pauli_string(out, list(ops)))
+                     for ops, c in zip(terms, coeffs))
+        norm = float(torch.sum(out.real.square() + out.imag.square(),
+                               dtype=torch.float64))
+        answers.append((energy, norm, t))
+        del out
+    launches = fused_sv.LAUNCHES
+    check(launches > 0, "the flat path launched the fused kernel")
+    check(fused_df64.LAUNCHES == 0 and rotate.LAUNCHES == 0,
+          "the flat path launched only the f32 kernel")
+    peak = (torch.cuda.max_memory_allocated() - base) / gib
+    torch.cuda.empty_cache()
+    for r, ((e, nrm, t), ref) in enumerate(zip(answers, phase4_energies)):
+        rel = abs(e - ref) / abs(ref)
+        print(f"flat request {r}: energy {e:.7f} (phase 4 Circuit {ref:.7f},"
+              f" rel diff {rel:.2e}), norm {nrm:.7f}, compile_ir call "
+              f"{t * 1e3:.2f} ms")
+        check(np.isfinite(e) and rel <= ENERGY_RTOL, f"flat energy {e}")
+        check(abs(nrm - 1.0) <= NORM_TOL, f"flat norm {nrm}")
+    print(f"flat n={n}: plan {len(plan)} kernel block(s), {len(passes)} "
+          f"planned complex-carry passes, {launches} fused launches for "
+          f"{len(requests)} requests, peak {peak:.2f} GiB over the "
+          f"{base / gib:.2f} GiB held before")
+    parts = flat_request_parts(interpreter, sv, fused_sv, fn, plan,
+                               requests[0], n, dev)
+    print("flat request parts (ms, CUDA events, best of 2): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+
+    # every complex-carry pass of the flat plan, kernel against plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    re = torch.randn(1 << n, generator=gen, device=dev)
+    im = torch.randn(1 << n, generator=gen, device=dev)
+    scale = float(torch.sqrt(torch.sum(re.square() + im.square(),
+                                       dtype=torch.float64))) ** -1
+    re *= scale
+    im *= scale
+    worst = 0.0
+    for specs, g, pb, fl in specs_of[:FLAT_CHECKED_PASSES]:
+        ref = fused_sv.apply_fused_layer_reference(re, im, specs, g,
+                                                   real_flags=fl)
+        got = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, g,
+                                         pair_bits=pb, real_flags=fl)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        worst = max(worst, err)
+        check(err <= KERNEL_TOL, f"flat pass {pb}: {err}")
+        del ref, got
+    checked = min(len(specs_of), FLAT_CHECKED_PASSES)
+    print(f"flat kernel vs plain n={n}: {checked} of {len(specs_of)} complex "
+          f"passes, max abs err {worst:.3e}")
+
+    def run_passes(fn_layer, limit):
+        def run(reps):
+            x, y = re.clone(), im.clone()
+            for _ in range(reps):
+                for specs, g, pb, fl in specs_of[:limit]:
+                    x, y = fn_layer(x, y, specs, g, pair_bits=pb,
+                                    real_flags=fl)
+            return reps * min(limit, len(specs_of))
+        return run
+
+    kernel_run = run_passes(fused_sv.apply_fused_layer, len(specs_of))
+    plain_run = run_passes(fused_sv.apply_fused_layer_reference,
+                           FLAT_PLAIN_PASSES)
+    turns = time_turns(kernel_run, plain_run, 2)
+    bound, bound_by = bound_ms(n, passes, 2, complex_state=True, df=False)
+    print(f"flat complex pass at n={n} (ms, in turns): plain {turns[0]:.4f},"
+          f" kernel {turns[1]:.4f}, kernel {turns[2]:.4f}, plain "
+          f"{turns[3]:.4f}; bound {bound:.4f} ({bound_by})")
+    del re, im
+    torch.cuda.empty_cache()
+    flat = {"launches": launches, "ms": min(turns[1], turns[2]),
+            "plain_ms": min(turns[0], turns[3]), "bound_ms": bound,
+            "max_abs_err": worst}
+
+    # ---- 14.2 QFT through Compiler, n = 26 --------------------------------
+    n = QFT_N
+    x = 0x2A5F3C1 % (1 << n)
+    comp = Compiler()
+    check(comp.load_module_from_string(to_qasm3(qft_ir(n))),
+          "the QFT's OpenQASM loads")
+    program = comp.compile()
+    out, t_cold = wall(lambda: program(sv.basis_state(n, x, device=dev),
+                                       None))
+    del out
+    out, t = wall(lambda: program(sv.basis_state(n, x, device=dev), None))
+    k = torch.arange(1 << n, dtype=torch.int64, device=dev)
+    phase = ((x * k) % (1 << n)).to(torch.float64) * (2 * np.pi / (1 << n))
+    expected = torch.polar(torch.full_like(phase, (1 << n) ** -0.5), phase)
+    err = float((out.to(torch.complex128) - expected).abs().max())
+    print(f"Compiler QFT n={n} of |{x}>: first call (plans) "
+          f"{t_cold * 1e3:.2f} ms, warm {t * 1e3:.2f} ms, max abs err vs "
+          f"closed form {err:.3e}")
+    check(err <= QFT_ATOL, f"Compiler QFT error {err}")
+    del out, k, phase, expected
+    torch.cuda.empty_cache()
+
+    # ---- 14.3 GHZ through the local backend, n = 29 -----------------------
+    n = GHZ_N
+    core.set_target("local")
+    backend = core.get_active_backend()
+    job, t = wall(lambda: backend.submit_job(to_qasm3(ghz_ir(n)), GHZ_SHOTS))
+    hist = backend.get_job_result(job)
+    ones = hist.get("1" * n, 0)
+    zeros = hist.get("0" * n, 0)
+    print(f"local backend GHZ n={n}: {GHZ_SHOTS} shots in {t * 1e3:.1f} ms, "
+          f"all-0 {zeros}, all-1 {ones}")
+    check(zeros + ones == GHZ_SHOTS, f"GHZ histogram {sorted(hist)[:4]}")
+    check(0.45 <= ones / GHZ_SHOTS <= 0.55, f"GHZ all-1 fraction {ones}")
+    check(0.45 <= zeros / GHZ_SHOTS <= 0.55, f"GHZ all-0 fraction {zeros}")
+    torch.cuda.empty_cache()
+
+    # ---- 14.4 a random circuit through QuantumSimulator, n = 26 -----------
+    n = QFT_N
+    circuit = random_circuit_ir(n, 20, 14).ops
+    u, _ = np.linalg.qr(np.random.default_rng(14).normal(size=(4, 4))
+                        + 1j * np.random.default_rng(15).normal(size=(4, 4)))
+    # ops the kernel does not take: a dense two-qubit unitary, a Toffoli,
+    # a doubly controlled Z (a diagonal block) and a SWAP
+    extra = [GateOp("UNITARY", (2, 5), (), (), u),
+             GateOp("UNITARY", (2, n - 6), (), (), u),
+             GateOp("MCX", (n - 1,), (1, 7)), GateOp("Z", (12,), (3, n - 2)),
+             GateOp("SWAP", (0, n - 1))]
+    circuit = circuit + extra + random_circuit_ir(n, 2, 15).ops
+    times = []
+    for _ in range(2):  # the first call plans, the second finds the plan
+        qsim = QuantumSimulator(n)
+        for op in circuit:
+            qsim._queue.append(op)
+        times.append(wall(qsim._flush)[1])
+    got = qsim._state
+    kinds = interpreter.plan_items(
+        interpreter.parametrize(circuit)[0], n,
+        low_width=interpreter.default_widths(n)[0],
+        high_width=interpreter.default_widths(n)[1])
+    counts = {}
+    for item in kinds:
+        counts[type(item).__name__] = counts.get(type(item).__name__, 0) + 1
+    want = interpreter.run_ops_exact(sv.init_state(n, device=dev), circuit)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"QuantumSimulator random n={n}: {len(circuit)} gates, plan "
+          f"{counts}, first flush {times[0] * 1e3:.1f} ms, warm "
+          f"{times[1] * 1e3:.1f} ms; max abs err vs the plain per-op engine "
+          f"{err:.3e} of max|amp|")
+    check(err <= KERNEL_TOL, f"QuantumSimulator random error {err}")
+    del qsim, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 14.5 Trotter evolution of the TFIM, n = 26 -----------------------
+    n = QFT_N
+    ham = tfim(rq, n)
+    out, t_cold = wall(lambda: evolve(sv.init_state(n, device=dev), ham,
+                                      0.5, TROTTER_STEPS, 2))
+    del out
+    out, t = wall(lambda: evolve(sv.init_state(n, device=dev), ham, 0.5,
+                                 TROTTER_STEPS, 2))
+    with plain_layers(fused_sv, "apply_fused_layer",
+                      fused_sv.apply_fused_layer_reference):
+        ref, t_ref = wall(lambda: evolve(sv.init_state(n, device=dev), ham,
+                                         0.5, TROTTER_STEPS, 2))
+    err = float((out - ref).abs().max()) / float(ref.abs().max())
+    print(f"evolve TFIM n={n}, {TROTTER_STEPS} steps, order 2: first call "
+          f"(plans) {t_cold * 1e3:.1f} ms, warm {t * 1e3:.1f} ms (plain "
+          f"layers {t_ref * 1e3:.1f} ms), max abs err {err:.3e} of "
+          f"max|amp|")
+    check(err <= KERNEL_TOL, f"evolve error {err}")
+    del out, ref
+    torch.cuda.empty_cache()
+
+    # ---- 14.6 the dsl backends ---------------------------------------------
+    n = QFT_N
+    gammas, betas = (0.4, 0.7), (0.3, 0.2)
+
+    @dsl.kernel
+    def qaoa(g0, b0, g1, b1):
+        q = dsl.qvec(QFT_N)
+        for i in range(QFT_N):
+            dsl.h(q[i])
+        for g, b in ((g0, b0), (g1, b1)):
+            for i in range(QFT_N):
+                j = (i + 1) % QFT_N
+                dsl.cnot(q[i], q[j])
+                dsl.rz(g, q[j])
+                dsl.cnot(q[i], q[j])
+            for i in range(QFT_N):
+                dsl.rx(b, q[i])
+
+    edges = [f"Z{i} Z{(i + 1) % n}" for i in range(n)]
+    cost = dsl.PauliOperator(edges[0])
+    for e in edges[1:]:
+        cost = cost + dsl.PauliOperator(e)
+    binds = {"g0": gammas[0], "b0": betas[0], "g1": gammas[1],
+             "b1": betas[1]}
+    zero_counts(fused_sv)
+    _, t_cold = wall(lambda: dsl.get_expectation_value(
+        qaoa, cost, "state_vector", **binds))
+    check(fused_sv.LAUNCHES > 0, "the dsl state vector launched the kernel")
+    value, t = wall(lambda: dsl.get_expectation_value(
+        qaoa, cost, "state_vector", **binds))
+    circ = rq.Circuit(n, rq.Simulator(device=dev))
+    for i in range(n):
+        circ.h(i)
+    for g, b in zip(gammas, betas):
+        for i in range(n):
+            j = (i + 1) % n
+            circ.cx(i, j)
+            circ.rz(g, j)
+            circ.cx(i, j)
+        for i in range(n):
+            circ.rx(b, i)
+    want = circ.expval(rq.PauliOperator({e: 1.0 for e in edges}))
+    rel = abs(value - want) / abs(want)
+    print(f"dsl QAOA MaxCut n={n} p=2: <sum ZZ> {value:.7f} (Circuit "
+          f"{want:.7f}, rel diff {rel:.2e}), first call {t_cold * 1e3:.1f}"
+          f" ms, warm {t * 1e3:.1f} ms")
+    check(rel <= ENERGY_RTOL, f"dsl QAOA {value} vs {want}")
+    del circ
+    torch.cuda.empty_cache()
+
+    n = DENSITY_N
+    noise = rq.NoiseModel()
+    noise.add_channel("depolarizing", 0.01)
+    noise.add_channel("amplitude_damping", 0.02, after_op="cnot")
+
+    @dsl.kernel
+    def layered(a):
+        q = dsl.qvec(DENSITY_N)
+        for i in range(DENSITY_N):
+            dsl.ry(a + 0.01 * i, q[i])
+        for i in range(DENSITY_N - 1):
+            dsl.cnot(q[i], q[i + 1])
+
+    ham = tfim(rq, n)
+    dham = dsl.PauliOperator("Z0")
+    for ops, c in ham.terms:
+        dham = dham + dsl.PauliOperator(
+            " ".join(f"{p}{q}" for p, q in ops), c)
+    zero_counts(fused_sv)
+    _, t_cold = wall(lambda: dsl.get_expectation_value(
+        layered, dham, "density_matrix", noise_model=noise, a=0.3))
+    check(fused_sv.LAUNCHES > 0, "the dsl density backend launched the "
+          "kernel")
+    value, t = wall(lambda: dsl.get_expectation_value(
+        layered, dham, "density_matrix", noise_model=noise, a=0.3))
+    dc = rq.DensityCircuit(n, rq.Simulator(device=dev), noise_model=noise)
+    for i in range(n):
+        dc.ry(0.3 + 0.01 * i, i)
+    for i in range(n - 1):
+        dc.cx(i, i + 1)
+    want = dc.expval(ham) + dc.expval(rq.PauliOperator("Z0"))
+    print(f"dsl density n={n} with a NoiseModel: <H> {value:.7f} "
+          f"(DensityCircuit {want:.7f}, diff {abs(value - want):.2e}), "
+          f"first call {t_cold * 1e3:.1f} ms, warm {t * 1e3:.1f} ms")
+    check(abs(value - want) <= DENSITY_TOL, f"dsl density {value} vs {want}")
+    del dc
+    torch.cuda.empty_cache()
+
+    # ---- 14.7 QuantumSimulator in double precision: QFT, n = 20 -----------
+    n = FLAT_DOUBLE_N
+    x = 0x5A3C1 % (1 << n)
+    rq.set_precision("double")
+    try:
+        qsim = QuantumSimulator(n)
+        for q in range(n):
+            if (x >> q) & 1:
+                qsim.apply_gate("X", [q])
+        for op in qft_ir(n).ops:
+            qsim._queue.append(op)
+        psi, t = wall(qsim.get_statevector)
+    finally:
+        rq.set_precision("single")
+    kk = np.arange(1 << n, dtype=np.int64)
+    closed = np.exp(1j * ((x * kk) % (1 << n)) * (2 * np.pi / (1 << n))) \
+        / np.sqrt(1 << n)
+    err = float(np.abs(psi - closed).max())
+    print(f"QuantumSimulator double QFT n={n}: {t * 1e3:.1f} ms, max abs err "
+          f"vs closed form {err:.3e}")
+    check(err <= FLAT_DOUBLE_TOL, f"double QFT error {err}")
+    print(f"flat phase: {time.perf_counter() - t_phase:.1f} s")
+    return flat
 
 
 def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,

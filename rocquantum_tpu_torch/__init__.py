@@ -1,9 +1,13 @@
 """rocquantum_tpu_torch — the rocquantum_tpu state-vector Circuit path
 (single, double and double-float precision), its kernel front end, compiled
 programs, adjoint gradients, the density-matrix engine (DensityCircuit,
-DensityMatrixState, noise channels, NoiseModel) and the tensor-network
-engine (``rocquantum_tpu_torch.tensornet``) on PyTorch, with hand-written
-CUDA fused-layer kernels for NVIDIA Hopper.
+DensityMatrixState, noise channels, NoiseModel), the tensor-network
+engine (``rocquantum_tpu_torch.tensornet``), the flat-state engine
+(``compiler.interpreter.execute``/``compile_ir``, ``ops.statevec``) and the
+program front ends on it (``simulator``, ``compiler.Compiler``, OpenQASM 3,
+QIR, ``qcircuit``, ``core`` with ``backends``, ``cli``, ``dsl``,
+``models.evolve``) on PyTorch, with hand-written CUDA fused-layer kernels
+for NVIDIA Hopper.
 
 The JAX package ``rocquantum_tpu`` beside it is the reference this package
 is tested against; this package imports neither it nor jax.

@@ -88,6 +88,15 @@ class Simulator:
     def host_random(self) -> float:
         return float(self._host_rng.random())
 
+    def create_device_matrix(self, numpy_matrix: np.ndarray) -> torch.Tensor:
+        """A gate matrix as a tensor of the precision's complex type on the
+        simulator's device (the reference's
+        create_device_matrix_from_numpy, python/rocq/bindings.cpp:487)."""
+        if not isinstance(numpy_matrix, np.ndarray):
+            raise TypeError("Input matrix must be a NumPy array.")
+        return torch.as_tensor(np.ascontiguousarray(numpy_matrix),
+                               device=self.device).to(config.complex_dtype())
+
 
 class _GateMethods:
     """Gate-emission methods shared by Circuit and the kernel recorder.

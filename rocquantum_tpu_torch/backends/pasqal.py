@@ -1,0 +1,46 @@
+"""Pasqal backend client (Type A, REST).
+
+API-parity rebuild of reference rocquantum/backends/pasqal.py: PASQAL_API_KEY
+env auth, Bearer token headers.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+from .base import RocqBackend, BackendAuthenticationError
+
+PASQAL_API_ENDPOINT = "https://api.pasqal.cloud"
+
+
+class PasqalBackend(RocqBackend):
+    """Client for the Pasqal cloud API."""
+
+    def __init__(self, backend_name: str = "pasqal",
+                 api_endpoint: str = PASQAL_API_ENDPOINT):
+        super().__init__(backend_name=backend_name, api_endpoint=api_endpoint)
+        self.api_key = None
+
+    def authenticate(self) -> None:
+        api_key = os.getenv("PASQAL_API_KEY")
+        if not api_key:
+            raise BackendAuthenticationError(
+                "Authentication failed: The 'PASQAL_API_KEY' environment "
+                "variable is not set. Please set it to your Pasqal API key.")
+        self.api_key = api_key
+
+    def _get_auth_headers(self) -> Dict[str, str]:
+        if not self.api_key:
+            raise BackendAuthenticationError(
+                "Client is not authenticated. Please call authenticate() "
+                "first.")
+        return {"Authorization": f"Bearer {self.api_key}"}
+
+    def _build_payload(self, circuit_representation: str,
+                       shots: int) -> Dict[str, Any]:
+        return {
+            "device": self.backend_name,
+            "shots": shots,
+            "program": circuit_representation,
+        }

@@ -1,17 +1,22 @@
-"""Circuit IR -> fused-kernel passes on a float-pair state.
+"""Circuit IR -> fused-kernel passes on a float-pair or flat complex state.
 
-The pair path of ``rocquantum_tpu/compiler/interpreter.py``. A gate list is
-planned once per circuit structure (the passes of compiler/passes.py, then
-the kernel-pass planner of ops/relabel.py) and the plan is cached by the
-IR's structural key; a run builds the gate coefficients on the host from the
-parameter values and replays the plan eagerly. There is no jit: PyTorch
-runs each kernel pass as it is issued.
+The pair and flat paths of ``rocquantum_tpu/compiler/interpreter.py``. A
+gate list is planned once per circuit structure (the passes of
+compiler/passes.py, then the kernel-pass planner of ops/relabel.py) and the
+plan is cached by the IR's structural key; a run builds the gate
+coefficients on the host from the parameter values and replays the plan
+eagerly. There is no jit: PyTorch runs each kernel pass as it is issued.
 
-The state is a pair of flat ``(2^n,)`` float32 planes ``(re, im)``, and
+The pair state is two flat ``(2^n,)`` float32 planes ``(re, im)``, and
 ``(re, None)`` while the circuit stays real: runs of kernel-eligible gates
 (PallasBlocks) go through the fused kernel (ops/fused_sv.py) with no complex
 tensor in between; every other item converts to complex64 locally and runs
 in plain torch (ops/statevec.py), as the JAX package leaves it to XLA.
+
+The flat state is one ``(2^n,)`` complex64 tensor (:func:`execute`,
+:func:`compile_ir`): it is split into float32 planes at the first
+PallasBlock of a run of blocks and joined after it, and every other item
+runs on it in plain torch. A complex128 flat state runs op by op, exactly.
 
 In double precision the state is a float64 pair, with two engines:
 :func:`compile_df64_fused_ir` (the double-float engine, ``set_precision
@@ -39,8 +44,9 @@ from ..ops import relabel
 from ..ops import statevec as sv
 from ..utils.cache import BoundedCache
 from .ir import CircuitIR, GateOp, ParamRef
-from .passes import (DiagBlock, FusedBlock, PallasBlock, fuse_diagonals,
-                     fuse_pallas_runs, plan_fusion)
+from .passes import (DiagBlock, FusedBlock, PallasBlock, consolidate_high,
+                     consolidate_low, fuse_diagonals, fuse_pallas_runs,
+                     plan_fusion)
 from .sharded_schedule import PERMUTE_BITS, SWAP_BITS, permutation_of
 
 # Smallest state the flush routes through the fused kernel. The JAX package
@@ -453,11 +459,8 @@ def run_ops_f64(re, im, ops: Sequence, params=None):
     """The exact double-precision engine: every op in order on the
     complex128 state, in plain torch (the JAX package runs it as plain XLA,
     ``pairsim.compile_pair_ir``). Returns the full float64 pair."""
-    params = _host_params(params)
     state = torch.complex(re, im if im is not None else torch.zeros_like(re))
-    for op in ops:
-        state = apply_op(state, op, params)
-    return state.real.contiguous(), state.imag.contiguous()
+    return sv.state_to_parts(run_ops_exact(state, ops, params))
 
 
 def apply_op(state: torch.Tensor, op: GateOp, params=None) -> torch.Tensor:
@@ -526,9 +529,14 @@ def init_real64(n: int, device) -> torch.Tensor:
 
 
 def plan_items(ops: Sequence, n: int, fuse: bool = True,
-               max_fuse: int = 2, every_run: bool = False) -> list:
+               max_fuse: int = 2, every_run: bool = False,
+               kernel: bool = True, low_width: int = 0,
+               high_width: int = 0) -> list:
     """The structure-only plan of a gate list: PallasBlocks for the fused
-    kernel (n >= KERNEL_MIN_QUBITS), then DiagBlocks and FusedBlocks.
+    kernel (``kernel`` and n >= KERNEL_MIN_QUBITS), then DiagBlocks and
+    FusedBlocks, then (widths > 0) the runs on the lowest ``low_width`` and
+    the highest ``high_width`` qubits merged into dense blocks
+    (passes.consolidate_low/high).
 
     A run of kernel-eligible gates becomes a block as the JAX package's
     flush decides it (at least 6 gates, out-of-window gates split off when
@@ -536,7 +544,7 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
     and qubits: the gradient's backward sweep (autodiff.py) runs each
     one-gate and each short parameter-free step on the kernel."""
     items = list(ops)
-    if n >= KERNEL_MIN_QUBITS:
+    if kernel and n >= KERNEL_MIN_QUBITS:
         if every_run:
             items = fuse_pallas_runs(items, n - 1, min_gates=1,
                                      num_qubits=n)
@@ -546,7 +554,22 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
     if fuse:
         items = fuse_diagonals(items)
         items = plan_fusion(items, max_fuse=max_fuse)
+    if low_width:
+        items = consolidate_low(items, low_width)
+    if high_width:
+        items = consolidate_high(items, high_width, n)
     return items
+
+
+def _apply_item(state: torch.Tensor, item, params) -> torch.Tensor:
+    """Apply one planned item other than a PallasBlock to a complex
+    state."""
+    if isinstance(item, DiagBlock):
+        return _apply_diag_block(state, item, params)
+    if isinstance(item, FusedBlock):
+        return sv.apply_matrix(state, _fused_matrix(item, params),
+                               list(item.qubits))
+    return apply_op(state, item, params)
 
 
 def run_items(re, im, items: Sequence, params, n: int, device=None):
@@ -561,14 +584,7 @@ def run_items(re, im, items: Sequence, params, n: int, device=None):
             continue
         if im is None:
             im = torch.zeros_like(re)
-        state = torch.complex(re, im)
-        if isinstance(item, DiagBlock):
-            state = _apply_diag_block(state, item, params)
-        elif isinstance(item, FusedBlock):
-            state = sv.apply_matrix(state, _fused_matrix(item, params),
-                                    list(item.qubits))
-        else:
-            state = apply_op(state, item, params)
+        state = _apply_item(torch.complex(re, im), item, params)
         re = state.real.contiguous()
         im = state.imag.contiguous()
     return re, im
@@ -593,6 +609,69 @@ def execute_pair(re, im, ops: Sequence, params=None, fuse: bool = True,
         device = re.device
     return run_items(re, im, plan_items(ops, n, fuse, max_fuse), params, n,
                      device=device)
+
+
+def run_flat(state: torch.Tensor, items: Sequence, params) -> torch.Tensor:
+    """Execute planned items on a flat complex64 state. The state is split
+    into float32 planes (``sv.state_to_parts``) at the first PallasBlock
+    and joined (``sv.parts_to_state``) at the next other item or at the
+    end, so a run of blocks pays one split and one join however many
+    kernel passes it plans; every other item runs on the complex state."""
+    params = _host_params(params)
+    n = sv.num_qubits_of(state)
+    planes = None
+    for item in items:
+        if isinstance(item, PallasBlock):
+            if planes is None:
+                planes, state = sv.state_to_parts(state), None
+            planes = _apply_pallas_block_pair(*planes, item, params, n)
+            continue
+        if planes is not None:
+            state, planes = sv.parts_to_state(*planes), None
+        state = _apply_item(state, item, params)
+    return state if planes is None else sv.parts_to_state(*planes)
+
+
+def run_ops_exact(state: torch.Tensor, ops: Sequence,
+                  params=None) -> torch.Tensor:
+    """Every op in order on the complex state, in plain torch: the path of
+    a complex128 state, which never reaches the float32 kernel."""
+    params = _host_params(params)
+    for op in ops:
+        state = apply_op(state, op, params)
+    return state
+
+
+def execute(state: torch.Tensor, ops: Sequence, params=None,
+            fuse: bool = True, max_fuse: int = 2, low_width: int = 0,
+            high_width: int = 0) -> torch.Tensor:
+    """Apply ``ops`` to a flat complex state and return the new state.
+
+    A complex64 state is planned by :func:`plan_items` (with ``fuse``, runs
+    of kernel-eligible gates become PallasBlocks from n =
+    KERNEL_MIN_QUBITS on) and run by :func:`run_flat`: on CUDA the blocks
+    launch the fused kernel, on the CPU its plain version. ``low_width`` /
+    ``high_width`` > 0 also merge runs on the lowest / highest qubits into
+    one dense block each (a matmul). A complex128 state runs every op
+    exactly (:func:`run_ops_exact`)."""
+    if state.dtype != torch.complex64:
+        return run_ops_exact(state, ops, params)
+    items = plan_items(ops, sv.num_qubits_of(state), fuse, max_fuse,
+                       kernel=fuse, low_width=low_width,
+                       high_width=high_width)
+    return run_flat(state, items, params)
+
+
+# widest dense block of the low and high consolidation (a 2^9-wide matmul)
+_MAX_LOW_WIDTH = 9
+_MAX_HIGH_WIDTH = 9
+
+
+def default_widths(n: int):
+    """(low_width, high_width) of :func:`compile_ir` for an n-qubit
+    circuit: 9 each, as far as n allows."""
+    low = min(_MAX_LOW_WIDTH, n)
+    return low, min(_MAX_HIGH_WIDTH, n - low)
 
 
 def parametrize(ops: Sequence[GateOp]):
@@ -641,6 +720,42 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
         re, im = pair
         return run_items(re, im, items, params, n,
                          device=device if re is None else re.device)
+
+    _PLAN_CACHE[key] = run
+    return run
+
+
+def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
+               low_width: Optional[int] = None,
+               high_width: Optional[int] = None):
+    """Return ``f(state, params) -> state`` for this IR over flat complex
+    states (:func:`execute`; widths default to :func:`default_widths`),
+    cached by structural key plus the concrete parameter values the plan
+    bakes in, so two IRs that differ only in angles never share a plan. The
+    complex64 plan is made at the first call; a complex128 state runs every
+    op exactly. The input state is not modified."""
+    dlw, dhw = default_widths(ir.num_qubits)
+    low_width = dlw if low_width is None else low_width
+    high_width = dhw if high_width is None else high_width
+    key = _plan_key(ir, "flat", fuse, max_fuse, low_width, high_width)
+    cached = _PLAN_CACHE.get(key)
+    if cached is not None:
+        return cached
+    n = ir.num_qubits
+    ops = list(ir.ops)
+    plan = []
+
+    def run(state, params=None):
+        if sv.num_qubits_of(state) != n:
+            raise ValueError(f"state has {sv.num_qubits_of(state)} qubits, "
+                             f"the circuit {n}")
+        if state.dtype != torch.complex64:
+            return run_ops_exact(state, ops, params)
+        if not plan:
+            plan.append(plan_items(ops, n, fuse, max_fuse, kernel=fuse,
+                                   low_width=low_width,
+                                   high_width=high_width))
+        return run_flat(state, plan[0], params)
 
     _PLAN_CACHE[key] = run
     return run

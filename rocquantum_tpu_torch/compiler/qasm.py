@@ -1,6 +1,10 @@
 """OpenQASM 3.0 emission from CircuitIR.
 
-A copy of ``rocquantum_tpu/compiler/qasm.py``.
+A copy of ``rocquantum_tpu/compiler/qasm.py`` with one repair: a
+controlled gate with no named controlled form (a controlled ``P`` of the
+QFT, a controlled ``H``) is emitted with the ``ctrl @`` modifier, where the
+JAX package's copy drops the modifier and prints the control as one more
+target (``p(x) q[c], q[t];``), which no parser reads back as the same gate.
 
 Parity with the reference's QuantumCircuit.to_qasm
 (rocquantum/circuit.py:68-96), extended to the full gate set.
@@ -51,10 +55,12 @@ def to_qasm3(ir: CircuitIR, add_measure_all: bool = True) -> str:
             lines.append(f"rz{theta} q[{b}];")
             lines.append(f"cx q[{a}], q[{b}];")
             continue
-        if name in _SIMPLE:
-            lines.append(f"{_SIMPLE[name]}{_fmt_params(op)} {qstr};")
-        elif name in _PARAM:
-            lines.append(f"{_PARAM[name]}{_fmt_params(op)} {qstr};")
+        if name in _SIMPLE or name in _PARAM:
+            gate = _SIMPLE.get(name) or _PARAM[name]
+            nc = len(op.controls)
+            mod = "" if not nc else "ctrl @ " if nc == 1 \
+                else f"ctrl({nc}) @ "
+            lines.append(f"{mod}{gate}{_fmt_params(op)} {qstr};")
         elif name in _CTRL:
             g = _CTRL[name]
             if g is None:  # MCX with arbitrary control count

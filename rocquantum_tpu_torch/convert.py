@@ -60,6 +60,24 @@ def state_from_numpy(re, im, device=None, dtype=np.float32
     return out_re, out_im
 
 
+def state_from_reference(state, device=None, dtype=None) -> torch.Tensor:
+    """A flat JAX complex state (as a numpy array, or the ``(re, im)``
+    pair of its float-pair engines) as this package's flat complex tensor
+    on ``device``. ``dtype`` defaults to the input's complex precision
+    (complex64 for float32 parts, else complex128)."""
+    if isinstance(state, (tuple, list)):
+        re, im = (np.asarray(p) for p in state)
+    else:
+        state = np.asarray(state)
+        re, im = state.real, state.imag
+    if dtype is None:
+        dtype = torch.complex64 if re.dtype == np.float32 \
+            else torch.complex128
+    z = np.ascontiguousarray(re, np.float64).reshape(-1) \
+        + 1j * np.ascontiguousarray(im, np.float64).reshape(-1)
+    return torch.as_tensor(z, device=device).to(dtype)
+
+
 def density_from_reference(rho, device=None, dtype=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's rho as this package's planes ``(re, im)`` of the

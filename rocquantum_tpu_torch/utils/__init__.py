@@ -1,0 +1,1 @@
+from .hamiltonian import compute_hamiltonian_expectation  # noqa: F401

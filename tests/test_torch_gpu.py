@@ -1,7 +1,8 @@
 """The CUDA kernels on the card against their plain-torch versions: the
 fused-layer kernels (f32 and df64), the index-bit rotation copy and the
 two tensor-core region dots; and the paths that launch them: Circuit,
-compile_program and the adjoint gradient. Also the tensor-network
+compile_program, the adjoint gradient and the flat-state engine
+(execute/compile_ir) with its front ends. Also the tensor-network
 executor on the card: float32-grade GEMMs under a global TF32 setting,
 the memory a sliced contraction takes from the allocator, and the native
 pathfinder.
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 import rocquantum_tpu_torch as rq
-from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir, qft_ir
+from rocquantum_tpu_torch.models import (hardware_efficient_ansatz_ir, qft_ir,
+                                         random_circuit_ir)
 from rocquantum_tpu_torch.ops import (df64, fused_df64, fused_sv, region_dot,
                                       relabel, rotate)
 from rocquantum_tpu_torch.tensornet import (Tensor, TensorNetwork,
@@ -469,6 +471,79 @@ def test_circuit_kernel_path_matches_plain_path(cuda, name):
     with _plain_layers():
         want = _run(ir, cuda, theta)
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def _flat_circuits(n):
+    """(name, IR, params) of the flat path's circuits at n qubits."""
+    ansatz = hardware_efficient_ansatz_ir(n, 3)
+    theta = np.random.default_rng(n).normal(size=ansatz.num_params)
+    return [("ansatz", ansatz, theta),
+            ("random", random_circuit_ir(n, 6, n), None),
+            ("qft", qft_ir(n), None)]
+
+
+@pytest.mark.parametrize("n", [16, 18, 20])
+def test_flat_execute_matches_the_plain_plan(cuda, n):
+    """execute / compile_ir on a complex64 state on the card: the kernel
+    passes against the same plan with the plain layer function, launches
+    counted; a complex128 state never reaches the kernel."""
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.ops import statevec
+
+    for name, ir, theta in _flat_circuits(n):
+        start = statevec.basis_state(n, 5, device=cuda)
+        before = fused_sv.LAUNCHES
+        got = interpreter.compile_ir(ir)(start, theta)
+        torch.cuda.synchronize()
+        assert fused_sv.LAUNCHES > before, name
+        with _plain_layers():
+            mid = fused_sv.LAUNCHES
+            want = interpreter.compile_ir(ir)(start, theta)
+            assert fused_sv.LAUNCHES == mid
+        assert got.dtype == torch.complex64 and got.device == start.device
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * top, name
+        assert torch.equal(start, statevec.basis_state(n, 5, device=cuda))
+        exact = interpreter.execute(start.to(torch.complex128), ir.ops, theta)
+        assert fused_sv.LAUNCHES == mid
+        assert float((got - exact).abs().max()) <= 1e-5 * top, name
+
+
+def test_flat_front_ends_on_the_card(cuda):
+    """QuantumSimulator, the local backend and a dsl kernel at n = 16 run on
+    the card and launch the fused kernel."""
+    from rocquantum_tpu_torch import core, dsl
+    from rocquantum_tpu_torch.compiler.qasm import to_qasm3
+    from rocquantum_tpu_torch.simulator import QuantumSimulator
+
+    n = 16
+    before = fused_sv.LAUNCHES
+    sim = QuantumSimulator(n)
+    for q in range(n):
+        sim.apply_gate("RY", [q], [0.1 * (q + 1)])
+    for q in range(n):
+        sim.apply_gate("CNOT", [q, (q + 1) % n])
+    probs = sim.get_probabilities([0, 5])
+    assert sim.device.type == "cuda" and abs(probs.sum() - 1.0) < 1e-5
+    core.set_target("local")
+    backend = core.get_active_backend()
+    from rocquantum_tpu_torch.models import ghz_ir
+    hist = backend.get_job_result(backend.submit_job(to_qasm3(ghz_ir(n)),
+                                                     1000))
+    assert set(hist) <= {"0" * n, "1" * n}
+
+    @dsl.kernel
+    def ring(theta):
+        q = dsl.qvec(n)
+        for i in range(n):
+            dsl.ry(theta, q[i])
+        for i in range(n):
+            dsl.cnot(q[i], q[(i + 1) % n])
+
+    zz = dsl.get_expectation_value(ring, dsl.PauliOperator("Z0 Z1"),
+                                   "state_vector", theta=0.2)
+    assert np.isfinite(zz)
+    assert fused_sv.LAUNCHES > before
 
 
 def test_readout_on_the_card_matches_cpu(cuda):

@@ -204,6 +204,55 @@ print("ok")
 """
 
 
+# the program front ends: OpenQASM text through core.set_target("local"),
+# the CLI as ``python -m``, a dsl kernel on both backends, QuantumSimulator
+_FRONT_ENDS = _BLOCK_JAX + r"""
+import runpy
+import numpy as np
+from rocquantum_tpu_torch import core, dsl
+from rocquantum_tpu_torch.compiler import Compiler
+from rocquantum_tpu_torch.simulator import QuantumSimulator
+
+core.set_target("local", device="cpu")
+backend = core.get_active_backend()
+text = "OPENQASM 3.0;\nqubit[3] q;\nbit[3] c;\nh q[0];\ncx q[0], q[1];\n" \
+    "ctrl @ x q[1], q[2];\nc = measure q;"
+hist = backend.get_job_result(backend.submit_job(text, 500))
+assert set(hist) <= {"000", "111"} and sum(hist.values()) == 500, hist
+comp = Compiler()
+assert comp.load_module_from_string(text)
+assert "__quantum__qis__h__body" in comp.emit_qir()
+
+@dsl.kernel
+def bell(theta):
+    q = dsl.qvec(2)
+    dsl.ry(theta, q[0])
+    dsl.cnot(q[0], q[1])
+
+psi = dsl.execute(bell, device="cpu", theta=np.pi / 2)
+assert np.allclose(np.abs(psi) ** 2, [0.5, 0, 0, 0.5], atol=1e-6), psi
+zz = dsl.get_expectation_value(bell, dsl.PauliOperator("Z0 Z1"),
+                               "density_matrix", device="cpu", theta=0.3)
+assert abs(zz - 1.0) < 1e-6, zz
+
+sim = QuantumSimulator(3, device="cpu")
+sim.apply_gate("H", [0])
+sim.apply_gate("CNOT", [0, 2])
+assert np.allclose(sim.get_probabilities([0, 2]), [0.5, 0, 0, 0.5],
+                   atol=1e-6)
+
+sys.argv = ["rocq", "run", "--backend", "local", "--device", "cpu",
+            "--shots", "50", "--poll-interval", "0"]
+try:
+    runpy.run_module("rocquantum_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -231,6 +280,10 @@ def test_density_engine_runs_with_jax_blocked():
 
 def test_tensornet_and_df64_readout_run_with_jax_blocked():
     _run_blocked(_TENSORNET_AND_DF64_READOUT)
+
+
+def test_program_front_ends_run_with_jax_blocked():
+    _run_blocked(_FRONT_ENDS)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
