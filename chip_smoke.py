@@ -102,14 +102,31 @@ Phases:
      its density backend with a NoiseModel at n = 14 against
      DensityCircuit; a QuantumSimulator QFT at n = 20 in double against
      the closed form. First (planning) and warm calls are timed apart.
+  15. batched and dynamic circuits (since their port):
+     Circuit(26, sim, batch_size=8), 2^29 amplitudes, on the ring ansatz
+     (8 layers, 43 complex-carry passes, each one launch for the whole
+     batch), measure(0) per element, one more RY layer, the TFIM energy
+     per element and the marginal over qubits 0-2, twice (first and warm
+     calls); each element against an unbatched compile_ir run collapsed
+     to its outcome; the flush beside eight unbatched flat flushes; the
+     first 4 batched passes against the plain version and every pass
+     timed beside its bound; a QFT at n = 20 with b = 4 under "double"
+     and a measure against an unbatched exact run; GHZ n = 20 with a
+     measured correction (1024 shots, chunks of 128) and teleportation
+     (4096 shots) through set_target("local"); both QEC codes for every
+     single-qubit error on the card; a checkpoint round trip of a batch
+     of 8 at n = 20; PhaseTimer over the parts.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
-14's ansatz requests, and the probe's R = 2^17 call of each dot) runs
+14's ansatz requests, 15.1's batched requests, and the probe's R = 2^17
+call of each dot) runs
 with every launch count set to 0 just before it and read just after; the
 kernels line gives phase 12's counts as "density_launches" and its ms per
-pass of the density plans as "density_ms", and phase 14's as
+pass of the density plans as "density_ms", phase 14's as
 "flat_launches" and its complex pass's times and bound as "flat_ms",
-"flat_plain_ms", "flat_bound_ms" and "flat_max_abs_err".
+"flat_plain_ms", "flat_bound_ms" and "flat_max_abs_err", and phase
+15.1's as "batched_launches", "batched_ms", "batched_plain_ms",
+"batched_bound_ms" and "batched_max_abs_err".
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -187,6 +204,19 @@ FLAT_PLAIN_PASSES = 3     # of them timed on the plain layers
 TROTTER_STEPS = 10
 FLAT_DOUBLE_N = 20
 FLAT_DOUBLE_TOL = 1e-12   # complex128 QFT vs its closed form
+BATCH_N = 26          # the JAX package's fp64/df64 width
+BATCH = 8             # 8 x 2^26 = 2^29 amplitudes, the flagship's count
+BATCH_CHECKED_PASSES = 4  # batched passes held to the plain version
+BATCH_PLAIN_PASSES = 2    # of them timed on the plain layers
+BATCH_DOUBLE_N = 20
+BATCH_DOUBLE = 4
+BATCH_DOUBLE_TOL = 1e-12  # batched exact double vs an unbatched run
+DYN_GHZ_N = 20
+DYN_GHZ_SHOTS = 1024      # 8 chunks of 128 shots at the 2^27 cap
+DYN_FRACTION = (0.45, 0.55)
+TELEPORT_SHOTS = 4096
+TELEPORT_TOL = 0.03       # <Z> of the teleported qubit vs cos(pi/3)
+CKPT_N = 20
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -635,6 +665,8 @@ def main():
     tensornet_phase(rq, dev)
     flat = flat_phase(rq, interpreter, PallasBlock, fused_sv, fused_df64,
                       rotate, region_dot, requests, phase4_energies, dev)
+    batched = batched_phase(rq, interpreter, fused_sv, fused_df64, rotate,
+                            region_dot, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -655,6 +687,7 @@ def main():
         "flat_plain_ms": flat["plain_ms"],
         "flat_bound_ms": flat["bound_ms"],
         "flat_max_abs_err": flat["max_abs_err"],
+        **batched,
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
@@ -2571,6 +2604,404 @@ def tensornet_phase(rq, dev):
           f"singular values vs complex128 {s_err:.3e} of s_max")
     check(err <= TN_SVD_TOL and s_err <= TN_SVD_TOL, "tensor_svd")
     print(f"tensornet phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def batched_pass_parts(interpreter, ir, theta, n, b):
+    """(specs_of, passes) of the complex-carry passes that a batched flush
+    of ``ir`` plans: the kernel's arguments for each pass and, for the
+    bound, its specs and real flags."""
+    low, high = interpreter.default_widths(n)
+    plan = interpreter.plan_items(ir.ops, n, low_width=low, high_width=high)
+    params = interpreter._host_params(theta)
+    specs_of, passes = [], []
+    for item in plan:
+        kinds, supports, gm, flags = interpreter.pallas_block_specs(item,
+                                                                    params)
+        for kp in interpreter.kernel_plan(n, kinds, supports,
+                                          complex_carry=True):
+            idx = list(kp.gate_idx)
+            specs = tuple((kinds[i],) + tuple(p)
+                          for i, p in zip(idx, kp.positions))
+            fl = [flags[i] for i in idx]
+            specs_of.append((specs, gm[idx], kp.pair_bits, fl))
+            passes.append((specs, fl))
+    return plan, specs_of, passes
+
+
+@contextlib.contextmanager
+def recording_batches(fused_sv, seen):
+    """Record the batch of every fused-layer call (the wrapper still
+    launches the kernel)."""
+    kernel_fn = fused_sv.apply_fused_layer
+
+    def recording(re, im, *args, **kwargs):
+        seen.append(1 if re is None or re.dim() == 1 else re.shape[0])
+        return kernel_fn(re, im, *args, **kwargs)
+
+    fused_sv.apply_fused_layer = recording
+    try:
+        yield
+    finally:
+        fused_sv.apply_fused_layer = kernel_fn
+
+
+def batched_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
+                  dev):
+    """Phase 15: batched circuits (Circuit(n, sim, batch_size=b)) on the
+    batched fused kernel, batched exact double, dynamic circuits through
+    the local backend, QEC, checkpoints and phase timers. Returns the
+    batched path's launches and its pass's times, bound and error."""
+    import os
+
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch import core, qec
+    from rocquantum_tpu_torch.compiler.dynamic import expval_z_dynamic
+    from rocquantum_tpu_torch.compiler.ir import CircuitIR
+    from rocquantum_tpu_torch.compiler.qasm_parser import parse_qasm3_program
+    from rocquantum_tpu_torch.models import (hardware_efficient_ansatz_ir,
+                                             qft_ir)
+    from rocquantum_tpu_torch.ops import pairsim
+    from rocquantum_tpu_torch.ops import statevec as sv
+    from rocquantum_tpu_torch.utils import checkpoint
+    from rocquantum_tpu_torch.utils.profiling import PhaseTimer
+
+    t_phase = time.perf_counter()
+    timer = PhaseTimer(device=dev)
+    gib = 1 << 30
+
+    # ---- 15.1 the batched f32 path at full width -------------------------
+    n, b = BATCH_N, BATCH
+    rng = np.random.default_rng(15)
+    theta = rng.normal(size=n * ANSATZ_LAYERS).astype(np.float32)
+    tail = rng.normal(size=n).astype(np.float32)
+    hamiltonian = tfim(rq, n)
+    terms = [tuple(ops) for ops, _ in hamiltonian.terms]
+    coeffs = [c for _, c in hamiltonian.terms]
+    ir = hardware_efficient_ansatz_ir(n, ANSATZ_LAYERS)
+    plan, specs_of, passes = batched_pass_parts(interpreter, ir, theta, n,
+                                                b)
+    sim = rq.Simulator(seed=15, device=dev)
+    circ = rq.Circuit(n, sim, batch_size=b)
+
+    def ansatz():
+        k = 0
+        for _ in range(ANSATZ_LAYERS):
+            for q in range(n):
+                circ.ry(float(theta[k]), q)
+                k += 1
+            for q in range(n):
+                circ.cx(q, (q + 1) % n)
+
+    def request():
+        """flush (timed), measure(0), an RY layer, energies, marginal."""
+        circ.reset()
+        ansatz()
+        before = fused_sv.BATCHED_LAUNCHES
+        _, t = wall(circ.flush)
+        flush_launches = fused_sv.BATCHED_LAUNCHES - before
+        outcomes, probs = circ.measure(0)
+        for q in range(n):
+            circ.ry(float(tail[q]), q)
+        energies, t_e = wall(lambda: circ.expval(hamiltonian))
+        marg = circ.get_probabilities([0, 1, 2])
+        return t, flush_launches, outcomes, probs, energies, t_e, marg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    with timer.phase("15.1 batched f32"):
+        t_first, first_launches, *_ = request()
+        (t_warm, warm_launches, outcomes, probs, energies, t_e,
+         marg) = request()
+    launches = fused_sv.LAUNCHES
+    batched_launches = fused_sv.BATCHED_LAUNCHES
+    peak = (torch.cuda.max_memory_allocated() - base) / gib
+    check(first_launches == warm_launches == len(specs_of),
+          f"the batched flush launched {first_launches} times for "
+          f"{len(specs_of)} planned passes")
+    check(launches == batched_launches and launches > 2 * len(specs_of),
+          "every launch of the batched path covered the batch")
+    check(fused_df64.LAUNCHES == 0 and rotate.LAUNCHES == 0,
+          "the batched path launched only the f32 kernel")
+    check(marg.shape == (b, 8) and energies.shape == (b,),
+          "batched readouts are per element")
+    state = circ.state
+    check(state.shape == (b, 1 << n) and state.dtype == torch.complex64,
+          "the batched f32 state is complex64 (b, 2^n)")
+    # each element against an unbatched compile_ir run, collapsed to its
+    # outcome, then the same RY layer
+    fn = interpreter.compile_ir(ir)
+    layer = CircuitIR(n)
+    for q in range(n):
+        layer.add("RY", [q], params=[float(tail[q])])
+    tail_fn = interpreter.compile_ir(layer)
+    ref = fn(sv.init_state(n, device=dev), theta)
+    worst, worst_rel = 0.0, 0.0
+    for o in sorted(set(int(x) for x in outcomes)):
+        ref_o = tail_fn(sv.collapse(ref, 0, o))
+        e_ref = float(pairsim.expval_terms_pair(ref_o.real, ref_o.imag,
+                                                terms, coeffs))
+        top = float(ref_o.abs().max())
+        for k in np.flatnonzero(outcomes == o):
+            err = float((state[k] - ref_o).abs().max()) / top
+            rel = abs(float(energies[k]) - e_ref) / abs(e_ref)
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        del ref_o
+    del ref
+    check(worst <= KERNEL_TOL, f"batched element error {worst}")
+    check(worst_rel <= ENERGY_RTOL, f"batched energy rel error {worst_rel}")
+    print(f"batched n={n} b={b}: plan {len(plan)} kernel block(s), "
+          f"{len(specs_of)} complex passes, the flush launched "
+          f"{first_launches} (not {b} x), {launches} launches in the run "
+          f"(2 requests), all batched; outcomes {outcomes.tolist()}, probs "
+          f"{np.round(probs, 6).tolist()}; elements within {worst:.3e} of "
+          f"max|amp| of unbatched compile_ir runs, energies within "
+          f"{worst_rel:.2e} relative; peak {peak:.2f} GiB over the "
+          f"{base / gib:.2f} GiB held before")
+    print(f"batched flush: first (plans) {t_first * 1e3:.2f} ms, warm "
+          f"{t_warm * 1e3:.2f} ms; energies {t_e * 1e3:.2f} ms; marginal "
+          f"row 0 {np.round(marg[0], 4).tolist()}")
+    del state, circ
+    torch.cuda.empty_cache()
+    # eight unbatched flat flushes of the same circuit
+    flat_start = sv.init_state(n, device=dev)
+
+    def eight():
+        for _ in range(b):
+            out = fn(flat_start, theta)
+            del out
+
+    _, t_eight = wall(eight)
+    _, t_eight_2 = wall(eight)
+    del flat_start
+    torch.cuda.empty_cache()
+    print(f"8 unbatched flat flushes at n={n}: {t_eight * 1e3:.2f}, "
+          f"{t_eight_2 * 1e3:.2f} ms (batched warm flush "
+          f"{t_warm * 1e3:.2f} ms, ratio "
+          f"{t_warm / min(t_eight, t_eight_2):.3f})")
+
+    # the batched passes, kernel against plain, timed in turns
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    re = torch.randn((b, 1 << n), generator=gen, device=dev)
+    im = torch.randn((b, 1 << n), generator=gen, device=dev)
+    scale = torch.rsqrt(pairsim.norm2_pair(re, im)).to(torch.float32)
+    re *= scale[:, None]
+    im *= scale[:, None]
+    err_max = 0.0
+    for specs, g, pb, fl in specs_of[:BATCH_CHECKED_PASSES]:
+        ref = fused_sv.apply_fused_layer_reference(re, im, specs, g,
+                                                   real_flags=fl)
+        got = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, g,
+                                         pair_bits=pb, real_flags=fl)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        err_max = max(err_max, err)
+        check(err <= KERNEL_TOL, f"batched pass {pb}: {err}")
+        del ref, got
+    print(f"batched kernel vs plain n={n} b={b}: {BATCH_CHECKED_PASSES} of "
+          f"{len(specs_of)} passes, max abs err {err_max:.3e}")
+
+    def run_passes(fn_layer, limit):
+        def run(reps):
+            x, y = re.clone(), im.clone()
+            for _ in range(reps):
+                for specs, g, pb, fl in specs_of[:limit]:
+                    x, y = fn_layer(x, y, specs, g, pair_bits=pb,
+                                    real_flags=fl)
+            return reps * min(limit, len(specs_of))
+        return run
+
+    turns = time_turns(run_passes(fused_sv.apply_fused_layer, len(specs_of)),
+                       run_passes(fused_sv.apply_fused_layer_reference,
+                                  BATCH_PLAIN_PASSES), 2)
+    # b elements: b times one state's bytes and operations
+    bound, bound_by = bound_ms(n, passes, 2, complex_state=True, df=False)
+    bound *= b
+    print(f"batched complex pass n={n} b={b} (ms, in turns): plain "
+          f"{turns[0]:.4f}, kernel {turns[1]:.4f}, kernel {turns[2]:.4f}, "
+          f"plain {turns[3]:.4f}; bound {bound:.4f} ({bound_by})")
+    del re, im
+    torch.cuda.empty_cache()
+    batched = {"batched_launches": batched_launches,
+               "batched_ms": min(turns[1], turns[2]),
+               "batched_plain_ms": min(turns[0], turns[3]),
+               "batched_bound_ms": bound,
+               "batched_max_abs_err": err_max}
+
+    # ---- 15.2 batched exact double ---------------------------------------
+    n, b = BATCH_DOUBLE_N, BATCH_DOUBLE
+    x = 0x5A3C7 % (1 << n)
+    with timer.phase("15.2 batched double"):
+        rq.set_precision("double")
+        try:
+            circs = (rq.Circuit(n, rq.Simulator(seed=16, device=dev),
+                                batch_size=b),
+                     rq.Circuit(n, rq.Simulator(device=dev)))
+            for c in circs:
+                for q in range(n):
+                    if (x >> q) & 1:
+                        c.x(q)
+                for op in qft_ir(n).ops:
+                    c._enqueue(op.name, op.targets, op.controls, op.params)
+            (got_out, _), t_double = wall(lambda: circs[0].measure(0))
+            check(isinstance(circs[0].state, tuple)
+                  and circs[0].state[0].dtype == torch.float64,
+                  "the batched double state is a float64 pair")
+            got = circs[0].get_statevector()
+            want = circs[1].get_statevector()
+        finally:
+            rq.set_precision("single")
+    err = 0.0
+    for k in range(b):
+        o = int(got_out[k])
+        ref = want.reshape(-1, 2).copy()  # (rest, qubit 0)
+        ref[:, 1 - o] = 0
+        ref = ref.reshape(-1) / np.linalg.norm(ref)
+        err = max(err, float(np.abs(got[k] - ref).max()))
+    check(err <= BATCH_DOUBLE_TOL, f"batched double error {err}")
+    print(f"batched double QFT n={n} b={b} then measure(0): outcomes "
+          f"{got_out.tolist()}, {t_double * 1e3:.1f} ms, every element within"
+          f" {err:.3e} of an unbatched exact-double run collapsed the same "
+          f"way")
+    del circs, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 15.3 dynamic circuits through the local backend -----------------
+    n = DYN_GHZ_N
+    text = (f"OPENQASM 3.0;\nqubit[{n}] q;\nbit[1] c;\nh q[0];\n"
+            + "".join(f"cx q[{q}], q[{q + 1}];\n" for q in range(n - 1))
+            + "c[0] = measure q[0];\nif (c[0] == 1) {\n"
+            + "".join(f"x q[{q}];\n" for q in range(1, n)) + "}\n")
+    core.set_target("local")
+    backend = core.get_active_backend()
+    seen = []
+    with timer.phase("15.3 dynamic"), recording_batches(fused_sv, seen):
+        job, t_ghz = wall(lambda: backend.submit_job(text, DYN_GHZ_SHOTS))
+        hist = backend.get_job_result(job)
+        teleport = parse_qasm3_program(TELEPORT_QASM)
+        ez, t_tel = wall(lambda: expval_z_dynamic(teleport, 2, TELEPORT_SHOTS,
+                                                  seed=15, device=dev))
+    zeros, ones = hist.get("0" * n, 0), hist.get("0" * (n - 1) + "1", 0)
+    check(zeros + ones == DYN_GHZ_SHOTS, f"GHZ keys {sorted(hist)[:4]}")
+    for count in (zeros, ones):
+        check(DYN_FRACTION[0] <= count / DYN_GHZ_SHOTS <= DYN_FRACTION[1],
+              f"corrected GHZ fraction {count}")
+    check(max(seen) == 128, f"the dynamic GHZ ran batches {sorted(set(seen))}")
+    check(abs(ez - np.cos(np.pi / 3)) <= TELEPORT_TOL,
+          f"teleportation <Z> {ez}")
+    print(f"dynamic GHZ n={n} with correction, {DYN_GHZ_SHOTS} shots in "
+          f"chunks of {max(seen)}: {t_ghz * 1e3:.1f} ms, 0...0 {zeros}, "
+          f"0...01 {ones}; teleportation {TELEPORT_SHOTS} shots: <Z> "
+          f"{ez:.4f} (cos(pi/3) = 0.5) in {t_tel * 1e3:.1f} ms")
+    torch.cuda.empty_cache()
+
+    # ---- 15.4 QEC, checkpoint, phase timers -------------------------------
+    with timer.phase("15.4 qec"):
+        qec_cases = qec_on_the_card(rq, qec, dev)
+    print(f"QEC on the card: {qec_cases} single-error cases, every syndrome "
+          f"as the decoders' tables")
+    n, b = CKPT_N, BATCH
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "batch.npz")
+    with timer.phase("15.4 checkpoint"):
+        c = rq.Circuit(n, rq.Simulator(seed=17, device=dev), batch_size=b)
+        for q in range(n):
+            c.ry(0.1 * (q + 1), q)
+            c.rz(0.05 * q, q)
+        c.measure(3)
+        c.flush()
+        checkpoint.save_circuit_checkpoint(path, c)
+        c2 = rq.Circuit(n, rq.Simulator(device=dev), batch_size=b)
+        checkpoint.restore_circuit_checkpoint(path, c2)
+        check(torch.equal(c2.state, c.state),
+              "the batched checkpoint round trip is bit-exact")
+    os.remove(path)
+    print(f"checkpoint of a batch of {b} at n={n}: round trip bit-exact")
+    for name, row in timer.summary().items():
+        print(f"phase timer {name}: {row['total_s'] * 1e3:.1f} ms")
+    print(f"batched phase: {time.perf_counter() - t_phase:.1f} s")
+    return batched
+
+
+TELEPORT_QASM = """
+OPENQASM 3.0;
+include "stdgates.inc";
+gate prep(theta) a {
+    ry(theta) a;
+}
+gate bellpair a, b {
+    h a;
+    cx a, b;
+}
+qubit[3] q;
+bit[2] c;
+prep(1.0471975511965976) q[0];
+bellpair q[1], q[2];
+cx q[0], q[1];
+h q[0];
+c[0] = measure q[0];
+c[1] = measure q[1];
+if (c[1] == 1) {
+    x q[2];
+}
+if (c[0] == 1) {
+    z q[2];
+}
+"""
+
+
+def qec_on_the_card(rq, qec, dev):
+    """Both codes, no error and every single-qubit X, Z and Y error on a
+    data qubit: the measured syndrome equals the decoder's table (the
+    repetition code reads X parity only: a Z error reads [0, 0]; the
+    Steane code's two triples read the X and the Z part's position).
+    Returns the number of cases."""
+    sim = rq.Simulator(seed=1, device=dev)
+    exp = qec.QEC_Experiment(sim)
+
+    def steane_zero(q):
+        for piv, rest in ((0, (2, 4, 6)), (1, (2, 5, 6)), (3, (4, 5, 6))):
+            q.h(piv)
+            for d in rest:
+                q.cx(piv, d)
+
+    rep_x = {0: [1, 0], 1: [1, 1], 2: [0, 1]}
+    cases = 0
+    for code, decoder, data, n, ancillas, prep in (
+            (qec.ThreeQubitRepetitionCode(), qec.RepetitionCodeDecoder(), 3,
+             5, [3, 4], None),
+            (qec.SteaneCode(), qec.SteaneDecoder(), 7, 13,
+             list(range(7, 13)), steane_zero)):
+        for kind, q in [(None, None)] + [(k, q) for k in "xzy"
+                                         for q in range(data)]:
+            def kern(c, _k=kind, _q=q, _p=prep):
+                if _p is not None:
+                    _p(c)
+                if _k is not None:
+                    getattr(c, _k)(_q)
+            result = exp.run_single_round(code, decoder, rq.kernel(kern), n,
+                                          ancillas)
+            if data == 3:
+                want = [0, 0] if kind in (None, "z") else rep_x[q]
+            else:
+                pos = [0, 0, 0] if kind is None else \
+                    [((q + 1) >> j) & 1 for j in range(3)]
+                zero = [0, 0, 0]
+                want = (pos if kind in ("x", "y") else zero) + \
+                    (pos if kind in ("z", "y") else zero)
+            check(result["syndrome"] == want,
+                  f"{type(code).__name__} {kind}{q}: {result['syndrome']}")
+            if kind is not None and (data == 7 or kind != "z"):
+                check(f"{kind.upper()}{q}" in result["correction_applied"]
+                      or (data == 3 and kind == "y"),
+                      f"{type(code).__name__} {kind}{q} correction")
+            cases += 1
+    return cases
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ engine (``rocquantum_tpu_torch.tensornet``), the flat-state engine
 (``compiler.interpreter.execute``/``compile_ir``, ``ops.statevec``) and the
 program front ends on it (``simulator``, ``compiler.Compiler``, OpenQASM 3,
 QIR, ``qcircuit``, ``core`` with ``backends``, ``cli``, ``dsl``,
-``models.evolve``) on PyTorch, with hand-written CUDA fused-layer kernels
-for NVIDIA Hopper.
+``models.evolve``), batched circuits (``Circuit(batch_size=b)``), dynamic
+circuits (``compiler.dynamic``), ``qec`` and ``utils`` (checkpoints,
+phase timers) on PyTorch, with hand-written CUDA fused-layer kernels for
+NVIDIA Hopper.
 
 The JAX package ``rocquantum_tpu`` beside it is the reference this package
 is tested against; this package imports neither it nor jax.

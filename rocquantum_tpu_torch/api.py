@@ -3,8 +3,8 @@ PauliOperator / kernel / build / get_expval / adjoint / compile_program /
 grad / adjoint_grad.
 
 Counterpart of ``rocquantum_tpu/api.py`` for a circuit on one device,
-unsharded and unbatched. ``Circuit`` queues gates and ``flush()`` replays
-the queue through the planned fused-kernel passes (compiler/interpreter.py),
+unsharded. ``Circuit`` queues gates and ``flush()`` replays the queue
+through the planned fused-kernel passes (compiler/interpreter.py),
 carrying the state as a float pair ``(re, im)`` and as ``(re, None)`` while
 the circuit stays real. The precision at the state's creation fixes its
 planes: float32 in single precision, float64 in double. A float64 state
@@ -14,6 +14,14 @@ returns the full pair. Mid-circuit ``measure`` reduces on the device,
 draws on the host from the simulator's numpy generator (the same draws as
 the JAX package for the same seed) and collapses on the device; ``sample``
 draws on the device from a seeded ``torch.Generator``.
+
+``Circuit(n, sim, batch_size=b)`` runs b states side by side (the
+reference's ``batchSize``, hipStateVec.h:61), as the JAX package does: in
+single precision one complex64 ``(b, 2^n)`` tensor through
+``compile_ir(batched=True)`` (the fused kernel's batched passes, one launch
+a pass for the whole batch); in double precision, ``"df64"`` included, the
+exact float64 pair of ``(b, 2^n)`` planes. Measurements draw per element
+in element order and readouts return one row or value per element.
 
 ``@kernel`` functions are traced into a CircuitIR by a recorder;
 ``compile_program`` captures a flush's plan once and replays it;
@@ -30,14 +38,15 @@ import numpy as np
 import torch
 
 from . import config
-from .compiler.interpreter import (compile_df64_fused_ir, compile_pair32_ir,
-                                   init_real, init_real64, parametrize,
-                                   run_ops_f64)
+from .compiler.interpreter import (compile_df64_fused_ir, compile_ir,
+                                   compile_pair32_ir, init_real, init_real64,
+                                   parametrize, run_ops_f64)
 from .compiler.ir import CircuitIR, GateOp, ParamRef
 from .compiler.passes import adjoint_ir
 from .compiler.qasm import to_qasm3
 from .compiler.sharded_schedule import elide_swaps, unpermute_ops
 from .ops import pairsim
+from .ops import statevec as sv
 from .utils.cache import BoundedCache
 
 
@@ -59,6 +68,18 @@ def _zero_state(n: int, device, precision: str, df64: bool):
         return init_real(n, device), None
     re = init_real64(n, device)
     return (re, None) if df64 else (re, torch.zeros_like(re))
+
+
+def _zero_batch(n: int, b: int, device, precision: str):
+    """|0...0> in each of b elements: a complex64 ``(b, 2^n)`` tensor in
+    single precision, else the exact float64 pair of ``(b, 2^n)``
+    planes (the JAX package batches neither the real carry nor df64)."""
+    if precision == "single":
+        state = torch.zeros((b, 1 << n), dtype=torch.complex64,
+                            device=device)
+        state[:, 0] = 1.0
+        return state
+    return pairsim.init_pair_batched(n, b, torch.float64, device)
 
 
 class Simulator:
@@ -250,16 +271,21 @@ class _GateMethods:
 
 class Circuit(_GateMethods):
     """A gate queue bound to device state; ``flush`` runs the queue through
-    the fused-kernel plan (reference api.py:37-288)."""
+    the fused-kernel plan (reference api.py:37-288). ``batch_size`` > 1
+    holds that many states, each getting every gate."""
 
     def __init__(self, num_qubits: int, simulator: Simulator,
-                 fuse: bool = True, max_fuse: int = 2, device=None):
+                 fuse: bool = True, max_fuse: int = 2, device=None,
+                 batch_size: int = 1):
         if not isinstance(simulator, Simulator):
             raise TypeError("A valid Simulator instance is required.")
         if num_qubits < 0:
             raise ValueError("Number of qubits must be non-negative.")
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1.")
         self.num_qubits = num_qubits
         self.simulator = simulator
+        self.batch_size = batch_size
         self.device = torch.device(device) if device is not None \
             else simulator.device
         self._fuse = fuse
@@ -273,16 +299,26 @@ class Circuit(_GateMethods):
     # -- state management ---------------------------------------------------
 
     @property
-    def state(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def state(self):
         """The float-pair state ``(re, im)``; ``im`` is None while the
         circuit is real. Made at first use in the precision set then: a
         real float32 plane, a real float64 plane for the double-float
-        engine, else the full float64 pair the exact engine carries."""
+        engine, else the full float64 pair the exact engine carries. A
+        batch is a complex64 ``(b, 2^n)`` tensor in single precision, else
+        a float64 pair of ``(b, 2^n)`` planes."""
         if self._state is None:
-            self._state = _zero_state(self.num_qubits, self.device,
-                                      config.get_precision(),
-                                      config.df64_enabled())
+            if self.batch_size > 1:
+                self._state = _zero_batch(self.num_qubits, self.batch_size,
+                                          self.device,
+                                          config.get_precision())
+            else:
+                self._state = _zero_state(self.num_qubits, self.device,
+                                          config.get_precision(),
+                                          config.df64_enabled())
         return self._state
+
+    def _is_complex_batch(self) -> bool:
+        return not isinstance(self.state, tuple)
 
     def _is_f64(self) -> bool:
         return self.state[0].dtype == torch.float64
@@ -327,8 +363,18 @@ class Circuit(_GateMethods):
         layout relabels, concrete angles become a parameter vector (float32
         on a float32 state, float64 on a float64 one) so structurally equal
         flushes share one cached plan; ``run(state, values) -> state`` runs
-        it on the engine the state's precision selects."""
+        it on the engine the state's precision selects. A batch keeps its
+        SWAPs as gates, as the JAX package's batched flush does, and runs
+        the batched flat engine or the exact one."""
         ops, values = parametrize(self._gate_queue)
+        if self.batch_size > 1:
+            if self._is_complex_batch():
+                fn = compile_ir(CircuitIR(self.num_qubits, ops),
+                                fuse=self._fuse, max_fuse=self._max_fuse,
+                                batched=True)
+                return fn, np.asarray(values, np.float32), self._layout
+            return (lambda state, p: run_ops_f64(*state, ops, p),
+                    np.asarray(values, np.float64), self._layout)
         ops, layout = elide_swaps(ops, self._layout)
         ir = CircuitIR(self.num_qubits, ops)
         if not self._is_f64():
@@ -356,22 +402,46 @@ class Circuit(_GateMethods):
 
     # -- measurement / readback ----------------------------------------------
 
-    def measure(self, qubit_to_measure: int) -> Tuple[int, float]:
+    def measure(self, qubit_to_measure: int):
         """Projective mid-circuit measurement: returns (outcome, probability
         of that outcome) and collapses the state (rocsvMeasure semantics,
-        hipStateVec.h:327). A real carry stays real."""
+        hipStateVec.h:327). A real carry stays real. A batch draws once per
+        element, in element order, and returns ``(outcomes, probs)`` arrays
+        of shape ``(b,)``."""
         self.flush()
         self._validate_qubit_index(qubit_to_measure)
         phys = self._phys(qubit_to_measure)
+        if self.batch_size > 1:
+            return self._measure_batch(phys)
         re, im = self.state
         p1 = float(pairsim.prob_one_pair(re, im, phys))
         outcome = 1 if self.simulator.host_random() < p1 else 0
         self._state = pairsim.collapse_pair(re, im, phys, outcome)
         return outcome, (p1 if outcome == 1 else 1.0 - p1)
 
+    def _measure_batch(self, phys: int):
+        state = self.state
+        if self._is_complex_batch():
+            p1 = sv.prob_one(state, phys)
+        else:
+            p1 = pairsim.prob_one_pair(*state, phys)
+        p1 = p1.cpu().numpy()
+        draws = np.asarray([self.simulator.host_random()
+                            for _ in range(self.batch_size)])
+        outcomes = (draws < p1).astype(np.int32)
+        probs = np.where(outcomes == 1, p1, 1.0 - p1)
+        picked = torch.as_tensor(outcomes, device=self.device)
+        if self._is_complex_batch():
+            self._state = sv.collapse_dyn(state, phys, picked)
+        else:
+            self._state = pairsim.collapse_pair_batched(
+                *state, phys, picked, self.num_qubits, self.batch_size)
+        return outcomes, probs
+
     def sample(self, measured_qubits: List[int], num_shots: int) -> np.ndarray:
         """Shot sampling over ``measured_qubits`` (rocsvSample;
-        qubits[0] is the least significant bit of each outcome)."""
+        qubits[0] is the least significant bit of each outcome); ``(b,
+        shots)``, drawn independently per element, for a batch."""
         self.flush()
         if not measured_qubits:
             raise ValueError("List of measured_qubits cannot be empty.")
@@ -380,9 +450,11 @@ class Circuit(_GateMethods):
         if num_shots <= 0:
             raise ValueError("Number of shots must be positive.")
         qubits = tuple(self._phys(q) for q in measured_qubits)
-        re, im = self.state
-        out = pairsim.sample_pair(re, im, qubits, num_shots,
-                                  self.simulator.generator(re.device))
+        gen = self.simulator.generator(self.device)
+        if self._is_complex_batch():
+            out = sv.sample(self.state, qubits, num_shots, gen)
+        else:
+            out = pairsim.sample_pair(*self.state, qubits, num_shots, gen)
         return out.cpu().numpy()
 
     def sample_counts(self, measured_qubits: List[int],
@@ -396,9 +468,12 @@ class Circuit(_GateMethods):
                 for v, c in sorted(Counter(samples.ravel().tolist()).items())}
 
     def get_statevector(self) -> np.ndarray:
-        """Full state readback as complex128 (rocsvGetStateVectorFull)."""
+        """Full state readback as complex128 (rocsvGetStateVectorFull);
+        ``(b, 2^n)`` for a batch."""
         self.flush()
         self._restore_identity_layout()
+        if self._is_complex_batch():
+            return self.state.cpu().numpy().astype(np.complex128)
         re, im = self.state
         out = re.cpu().numpy().astype(np.complex128)
         if im is not None:
@@ -412,7 +487,10 @@ class Circuit(_GateMethods):
         if start < 0 or size <= 0 or start + size > (1 << self.num_qubits):
             raise ValueError("slice out of range")
         self._restore_identity_layout()
-        re, im = pairsim.slice_pair(*self.state, start, size)
+        if self._is_complex_batch():
+            re, im = sv.state_slice_parts(self.state, start, size)
+        else:
+            re, im = pairsim.slice_pair(*self.state, start, size)
         out = re.cpu().numpy().astype(np.complex128)
         if im is not None:
             out += 1j * im.cpu().numpy()
@@ -424,19 +502,29 @@ class Circuit(_GateMethods):
         qubits = list(qubits) if qubits is not None \
             else list(range(self.num_qubits))
         phys = tuple(self._phys(q) for q in qubits)
-        probs = pairsim.marginal_probs_pair(*self.state, phys)
+        if self._is_complex_batch():
+            probs = sv.marginal_probs(self.state, phys)
+        else:
+            probs = pairsim.marginal_probs_pair(*self.state, phys)
         return probs.cpu().numpy().astype(np.float64)
 
-    def expval(self, pauli_operator: "PauliOperator") -> float:
+    def expval(self, pauli_operator: "PauliOperator"):
         """Expectation of a PauliOperator on the current state, computed on
-        the device with float64 accumulation."""
+        the device with float64 accumulation: a float, or a ``(b,)`` array
+        of one value per element for a batch."""
         if not isinstance(pauli_operator, PauliOperator):
             raise TypeError("Input must be a PauliOperator object.")
         self.flush()
         terms = [tuple((p, self._phys(q)) for p, q in ops)
                  for ops, _ in pauli_operator.terms]
         coeffs = [float(c) for _, c in pauli_operator.terms]
-        return float(pairsim.expval_terms_pair(*self.state, terms, coeffs))
+        state = self.state
+        if self._is_complex_batch():
+            state = (state.real, state.imag)
+        value = pairsim.expval_terms_pair(*state, terms, coeffs)
+        if self.batch_size > 1:
+            return value.cpu().numpy()
+        return float(value)
 
 
 class PauliOperator:

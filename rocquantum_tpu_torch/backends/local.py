@@ -6,9 +6,8 @@ CLI): executes submitted circuits on the in-process statevector engine
 (simulator.QuantumSimulator, on ``device``: the card unless the caller
 names another) with the standard Type A-style job lifecycle, so the whole
 set_target/submit/poll flow works offline and the CLI is end-to-end
-testable. Programs with mid-circuit measurement or classical control are
-parsed but not run yet: they need the shot-batched circuits of ROADMAP
-Queue 1 item 9.
+testable. OpenQASM programs with mid-circuit measurement or classical
+control run shot-batched (compiler/dynamic.run_dynamic).
 """
 
 from __future__ import annotations
@@ -49,10 +48,14 @@ class LocalBackend(RocqBackend):
             from ..compiler.qasm_parser import parse_qasm3_program
             program = parse_qasm3_program(circuit)
             if not program.is_static:
-                raise NotImplementedError(
-                    "dynamic circuits (mid-circuit measurement, classical "
-                    "control) need shot-batched execution, which this "
-                    "package does not have yet (ROADMAP Queue 1 item 9)")
+                # dynamic circuit (mid-circuit measurement / classical
+                # control): shot-batched execution
+                from ..compiler.dynamic import run_dynamic
+                histogram = run_dynamic(program, shots, seed=self._seed,
+                                        device=self.device)
+                job_id = f"local-{uuid.uuid4()}"
+                self._results[job_id] = histogram
+                return job_id
             ir = program.to_ir()
         elif isinstance(circuit, QuantumCircuit):
             ir = circuit.to_ir()

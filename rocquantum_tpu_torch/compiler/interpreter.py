@@ -17,6 +17,11 @@ The flat state is one ``(2^n,)`` complex64 tensor (:func:`execute`,
 :func:`compile_ir`): it is split into float32 planes at the first
 PallasBlock of a run of blocks and joined after it, and every other item
 runs on it in plain torch. A complex128 flat state runs op by op, exactly.
+A batched flat state, ``(b, 2^n)`` (``compile_ir(..., batched=True)``, where
+the JAX package vmaps ``execute``), runs the same plan on every element:
+its planes go through the batched fused kernel, one launch per pass for
+the whole batch, and every other item through the batch-aware functions of
+ops/statevec.py.
 
 In double precision the state is a float64 pair, with two engines:
 :func:`compile_df64_fused_ir` (the double-float engine, ``set_precision
@@ -138,15 +143,14 @@ def _diag_vector(op: GateOp, params) -> np.ndarray:
 
 
 def _phase_factor(state, values, desc):
-    """Multiply ``state`` by a factor tensor over the exposed qubits
-    ``desc`` (descending)."""
-    n = sv.num_qubits_of(state)
-    dims = sv.exposed_view_dims(n, desc)
+    """Multiply ``state`` (or each element of a batch) by a factor tensor
+    over the exposed qubits ``desc`` (descending)."""
+    dims = sv.view_dims(state, desc)
     bshape = [1] * len(dims)
     for j in range(len(desc)):
         bshape[2 * j + 1] = 2
     f = torch.as_tensor(values, dtype=state.dtype, device=state.device)
-    return (state.view(dims) * f.reshape(bshape)).reshape(-1)
+    return (state.view(dims) * f.reshape(bshape)).reshape(state.shape)
 
 
 def _apply_diag_block(state: torch.Tensor, block: DiagBlock,
@@ -458,7 +462,8 @@ def execute_df64(planes, ops: Sequence, params=None, fuse: bool = True,
 def run_ops_f64(re, im, ops: Sequence, params=None):
     """The exact double-precision engine: every op in order on the
     complex128 state, in plain torch (the JAX package runs it as plain XLA,
-    ``pairsim.compile_pair_ir``). Returns the full float64 pair."""
+    ``pairsim.compile_pair_ir``); ``(b, 2^n)`` planes run every op on each
+    element. Returns the full float64 pair."""
     state = torch.complex(re, im if im is not None else torch.zeros_like(re))
     return sv.state_to_parts(run_ops_exact(state, ops, params))
 
@@ -727,17 +732,21 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
 
 def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
                low_width: Optional[int] = None,
-               high_width: Optional[int] = None):
+               high_width: Optional[int] = None, batched: bool = False):
     """Return ``f(state, params) -> state`` for this IR over flat complex
     states (:func:`execute`; widths default to :func:`default_widths`),
     cached by structural key plus the concrete parameter values the plan
     bakes in, so two IRs that differ only in angles never share a plan. The
     complex64 plan is made at the first call; a complex128 state runs every
-    op exactly. The input state is not modified."""
+    op exactly. ``batched`` takes ``(b, 2^n)`` states and runs the circuit
+    on every element (the reference's ``batchSize``, hipStateVec.h:61),
+    kernel passes included: one launch per pass for the whole batch. The
+    input state is not modified."""
     dlw, dhw = default_widths(ir.num_qubits)
     low_width = dlw if low_width is None else low_width
     high_width = dhw if high_width is None else high_width
-    key = _plan_key(ir, "flat", fuse, max_fuse, low_width, high_width)
+    key = _plan_key(ir, "flat", fuse, max_fuse, low_width, high_width,
+                    batched)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         return cached
@@ -749,6 +758,10 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
         if sv.num_qubits_of(state) != n:
             raise ValueError(f"state has {sv.num_qubits_of(state)} qubits, "
                              f"the circuit {n}")
+        if state.dim() != 1 + batched:
+            raise ValueError(f"a {'batched' if batched else 'flat'} circuit "
+                             f"takes {'(b, 2^n)' if batched else '(2^n,)'} "
+                             f"states, got {tuple(state.shape)}")
         if state.dtype != torch.complex64:
             return run_ops_exact(state, ops, params)
         if not plan:

@@ -63,8 +63,15 @@
 // device copy; a pass with many window gates adds their FP32 work and its
 // exchanges' shared-memory traffic (PERF.md).
 //
-// Indices are 64-bit: 2^31 amplitudes (n = 31) overflow int32. A pass takes
-// at most 2^30 blocks (n <= 40 at T = 10).
+// Batches. The planes may hold b states of 2^n amplitudes each, one after
+// the other ((b, 2^n), element k at offset k << n). One launch covers the
+// whole batch: the grid is b * 2^(n - T) blocks, and block k owns tile
+// k & (2^(n - T) - 1) of element k >> (n - T). Each block is still one tile
+// of one element, so nothing inside a tile changes with the batch; only
+// the |0...0> mode is unbatched.
+//
+// Indices are 64-bit: 2^31 amplitudes (n = 31) overflow int32. A launch
+// takes at most 2^31 - 1 blocks (gridDim.x), batch included.
 //
 // C interface (ctypes): rocq_fused_pass(...) and rocq_init_zero(...) return
 // a cudaError_t as int.
@@ -97,13 +104,14 @@ struct Op {                // 40 bytes
 
 struct PassParams {
   int n, w, tile_bits, reg_bits, num_ops, gen_zero;
+  int batch;                               // states in the planes, >= 1
   signed char lbits[kSlots];               // qubit of each local position
   // per layout: local position of register bits 0..R-1, then of thread bits
   signed char layouts[kMaxLayouts][kSlots];
   Op ops[kMaxOps];
 };
 static_assert(sizeof(Op) == 40, "Op must match ops/fused_sv.py");
-static_assert(sizeof(PassParams) == 4008,
+static_assert(sizeof(PassParams) == 4012,
               "PassParams must match ops/fused_sv.py");
 
 // Value of a bit source that is constant over a thread's registers (0 for
@@ -394,7 +402,8 @@ __device__ __forceinline__ int apply_ops(float (&ar)[1 << kR],
 }
 
 // kR register bits per thread; launch bounds of kThreads threads and
-// kBlocks resident blocks per SM. Block b owns tile b.
+// kBlocks resident blocks per SM. Block k owns tile k & (2^(n - T) - 1) of
+// batch element k >> (n - T).
 template <bool kComplex, int kR, int kThreads, int kBlocks>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 fused_pass_kernel(float* __restrict__ re, float* __restrict__ im,
@@ -402,7 +411,13 @@ fused_pass_kernel(float* __restrict__ re, float* __restrict__ im,
   constexpr int kRegs = 1 << kR;
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
-  const uint64_t base = tile_base(p, blockIdx.x);
+  const int tile_log = p.n - p.tile_bits;
+  const uint64_t block = blockIdx.x;
+  const uint64_t element = (block >> tile_log) << p.n;
+  re += element;
+  if (kComplex) im += element;
+  const uint64_t base =
+      tile_base(p, block & ((uint64_t(1) << tile_log) - 1));
   const uint64_t load_off = thread_offset<kR>(p, 0, tid);
   float ar[kRegs], ai[kRegs];
   if (p.gen_zero) {
@@ -433,7 +448,8 @@ cudaError_t launch_pass(float* re, float* im, const PassParams& p,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const unsigned int blocks = 1u << (p.n - p.tile_bits);
+  const unsigned int blocks =
+      static_cast<unsigned int>(p.batch) << (p.n - p.tile_bits);
   const int threads = 1 << (p.tile_bits - kR);
   kernel<<<blocks, threads, smem, stream>>>(re, im, p);
   return cudaGetLastError();
@@ -453,7 +469,9 @@ bool valid_source(int s, const PassParams& p) {
 
 bool valid_params(const PassParams& p) {
   const int t = p.tile_bits;
-  if (t < kMinTileBits || t > kMaxTileBits || p.n < t || p.n - t > 30 ||
+  if (t < kMinTileBits || t > kMaxTileBits || p.n < t || p.n - t > 31 ||
+      p.batch < 1 || (uint64_t(p.batch) << (p.n - t)) > 0x7fffffffu ||
+      (p.gen_zero && p.batch != 1) ||
       p.w < 1 || p.w > t || p.num_ops < 0 || p.num_ops > kMaxOps ||
       p.reg_bits < 5 || p.reg_bits > 7 || t - p.reg_bits < kLaneBits ||
       t - p.reg_bits > kLaneBits + kMaxWarpBits) {
@@ -503,9 +521,9 @@ __global__ void init_zero_small_kernel(float* out, int size) {
 
 }  // namespace
 
-// re, im: flat (2^n,) float32 planes on the device, 16-byte aligned;
-// im == nullptr selects the real-plane mode (every gate real; the only mode
-// with more than 5 register bits). params: a host PassParams
+// re, im: (batch, 2^n) float32 planes on the device, contiguous and 16-byte
+// aligned; im == nullptr selects the real-plane mode (every gate real; the
+// only mode with more than 5 register bits). params: a host PassParams
 // (ops/fused_sv.py packs it), passed to the kernel by value. Returns a
 // cudaError_t.
 extern "C" int rocq_fused_pass(float* re, float* im, const void* params,

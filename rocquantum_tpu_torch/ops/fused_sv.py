@@ -3,8 +3,10 @@
 
 :func:`apply_fused_layer` applies an ordered list of gate specs to every
 amplitude of a flat ``(2^n,)`` float32 state plane pair ``(re, im)`` in one
-pass. On CUDA tensors it launches the hand-written kernel in
-``csrc/fused_sv.cu`` (built with nvcc at first use, updated in place); on
+pass, or of a batch of such states held as contiguous ``(b, 2^n)`` planes
+(one launch covers every element). On CUDA tensors it launches the
+hand-written kernel in ``csrc/fused_sv.cu`` (built with nvcc at first use,
+updated in place); on
 CPU tensors it runs :func:`apply_fused_layer_reference`, the plain-torch
 version the tests and ``chip_smoke.py`` hold the kernel against.
 :func:`init_zero` writes |0...0> into a new plane, on CUDA with the fill
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .statevec import exposed_view_dims, num_qubits_of
+from .statevec import num_qubits_of, view_dims
 
 W_BITS = 10     # the window: low bits any pass may target
 MAX_PAIRS = 5   # targeted bits above the window, anywhere in [W_BITS, n)
@@ -78,14 +80,17 @@ _OP_DTYPE = np.dtype([("kind", np.uint8), ("real", np.uint8),
 _PARAMS_DTYPE = np.dtype([
     ("n", np.int32), ("w", np.int32), ("tile_bits", np.int32),
     ("reg_bits", np.int32), ("num_ops", np.int32), ("gen_zero", np.int32),
-    ("lbits", np.int8, _SLOTS), ("layouts", np.int8, (MAX_LAYOUTS, _SLOTS)),
+    ("batch", np.int32), ("lbits", np.int8, _SLOTS),
+    ("layouts", np.int8, (MAX_LAYOUTS, _SLOTS)),
     ("ops", _OP_DTYPE, MAX_OPS)])
-assert _OP_DTYPE.itemsize == 40 and _PARAMS_DTYPE.itemsize == 4008
+assert _OP_DTYPE.itemsize == 40 and _PARAMS_DTYPE.itemsize == 4012
 
 # kernel launches in this process: fused passes, those of them in the
-# start-from-|0...0> mode, and |0...0> fills
+# start-from-|0...0> mode and those over a batch of more than one state,
+# and |0...0> fills
 LAUNCHES = 0
 INIT_LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 ZERO_LAUNCHES = 0
 
 _LIB = None
@@ -557,11 +562,13 @@ def pack_launch(n: int, launch: Launch, gate_mats, real_flags,
 
 
 def launch_params(n: int, launch: Launch, gate_mats, real_flags,
-                  gen_zero: bool) -> np.ndarray:
-    """The kernel's parameter block for one launch (a numpy scalar of
-    ``_PARAMS_DTYPE``, laid out as ``PassParams`` in csrc/fused_sv.cu)."""
+                  gen_zero: bool, batch: int = 1) -> np.ndarray:
+    """The kernel's parameter block for one launch over ``batch`` states
+    (a numpy scalar of ``_PARAMS_DTYPE``, laid out as ``PassParams`` in
+    csrc/fused_sv.cu)."""
     params = pack_launch(n, launch, gate_mats, real_flags)
     params["gen_zero"] = int(gen_zero)
+    params["batch"] = batch
     return params
 
 
@@ -572,13 +579,16 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
                       num_qubits: int = None, device=None):
     """Apply ``specs`` to the state in one pass; returns ``(re, im)``.
 
-    On CUDA the planes are updated in place and returned (a fresh ``re`` in
-    the ``re=None`` mode, allocated on ``device``, which defaults to the
-    current CUDA device); on the CPU the plain reference returns new
+    The planes are ``(2^n,)``, or ``(b, 2^n)`` for a batch of b states
+    (any b >= 1), every element getting the same gates in the same
+    launches. On CUDA the planes are updated in place and returned (a fresh
+    ``re`` in the ``re=None`` mode, allocated on ``device``, which defaults
+    to the current CUDA device); on the CPU the plain reference returns new
     planes. Raises ``ValueError`` on specs the pass cannot take and
     ``RuntimeError`` when the launch fails."""
     n, specs, pair_bits, real_flags = _check_layer(
         re, im, specs, gate_mats, pair_bits, real_flags, num_qubits)
+    batch = 1 if re is None else re.numel() >> n
     if re is not None:
         device = re.device
     device = torch.device(device if device is not None else "cuda")
@@ -591,7 +601,7 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
     for name, plane in (("re", re), ("im", im)):
         if plane is None:
             continue
-        _check_plane(name, plane, n, device)
+        _check_plane(name, plane, n, device, re.shape)
     launches = pass_schedule(n, specs, im is not None, F32_RULE)
     gen_zero = re is None
     if gen_zero:
@@ -600,27 +610,39 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
         gate_mats = gate_mats.detach().cpu().numpy()
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = build()
-    global LAUNCHES, INIT_LAUNCHES
+    global LAUNCHES, INIT_LAUNCHES, BATCHED_LAUNCHES
     for k, launch in enumerate(launches):
         params = launch_params(n, launch, gate_mats, real_flags,
-                               gen_zero and k == 0)
+                               gen_zero and k == 0, batch)
         LAUNCHES += 1
         INIT_LAUNCHES += gen_zero and k == 0
+        BATCHED_LAUNCHES += batch > 1
         err = lib.rocq_fused_pass(
             re.data_ptr(), None if im is None else im.data_ptr(),
             params.ctypes.data, stream)
         if err != 0:
             raise RuntimeError(f"fused_sv kernel launch failed: cudaError_t "
-                               f"{err} (n={n}, pair_bits={pair_bits}, "
-                               f"{len(specs)} gates)")
+                               f"{err} (n={n}, batch={batch}, pair_bits="
+                               f"{pair_bits}, {len(specs)} gates)")
     return re, im
 
 
-def _check_plane(name: str, plane: torch.Tensor, n: int, device):
+def _check_plane(name: str, plane: torch.Tensor, n: int, device,
+                 shape=None):
+    """A plane the kernel may take: contiguous float32 of ``shape`` (that
+    of ``re``: ``(2^n,)`` or ``(b, 2^n)``; default ``(2^n,)``) on
+    ``device``."""
     if plane.dtype != torch.float32 or not plane.is_contiguous():
         raise ValueError(f"{name} must be a contiguous float32 tensor")
-    if plane.device != device or plane.numel() != 1 << n:
-        raise ValueError(f"{name} must be a ({1 << n},) plane on {device}")
+    if shape is None:
+        shape = (1 << n,)
+    batch = plane.numel() >> n
+    if (plane.device != device or plane.shape != shape
+            or plane.dim() not in (1, 2) or batch < 1
+            or plane.numel() != batch << n):
+        raise ValueError(f"{name} must be a ({1 << n},) or (b, {1 << n}) "
+                         f"plane shaped as re on {device}, got "
+                         f"{tuple(plane.shape)}")
     if plane.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (the "
                          f"kernel moves float4s)")
@@ -655,9 +677,10 @@ def apply_fused_layer_reference(re, im, specs, gate_mats, pair_bits=(),
                                 real_flags=None, num_qubits=None,
                                 device=None):
     """Plain-torch version of :func:`apply_fused_layer`: applies the specs
-    in order to the full flat planes through strided views, with no notion
-    of the kernel's local set (``pair_bits`` is accepted and ignored).
-    Returns new planes; the inputs are not modified."""
+    in order to the full planes (``(2^n,)`` or a ``(b, 2^n)`` batch)
+    through strided views, with no notion of the kernel's local set
+    (``pair_bits`` is accepted and ignored). Returns new planes; the inputs
+    are not modified."""
     specs = _normalize_specs(specs)
     if real_flags is not None and im is None and not all(real_flags):
         raise ValueError("real-plane mode (im=None) requires every gate "
@@ -689,7 +712,8 @@ def apply_fused_layer_reference(re, im, specs, gate_mats, pair_bits=(),
 
 
 def _views(re, im, n, bits_desc):
-    dims = exposed_view_dims(n, bits_desc)
+    """Views exposing ``bits_desc``; a batch folds into the top axis."""
+    dims = view_dims(re, bits_desc)
     return re.view(dims), None if im is None else im.view(dims)
 
 

@@ -7,6 +7,14 @@ on the device that holds the state. Every function takes the state as flat
 state. Bit tests use strided views (no index arrays), and every reduction
 accumulates in float64. ``collapse_pair`` guards its renormalization with
 the precision's ``config.eps()``.
+
+The planes may carry a leading batch axis, ``(b, 2^n)``: the readouts then
+return one value (or row, or draw set) per element. The ``*_batched``
+functions are the JAX package's batched double twins with its signatures
+(``n`` and ``b`` given, checked against the planes). The JAX package keeps
+a batched float64 state as one flat pair with the batch in padded top
+index bits, a workaround of the TPU's 2-D float64 and int32-iota limits;
+here the batch is the leading axis of ``(b, 2^n)`` planes.
 """
 
 from __future__ import annotations
@@ -21,11 +29,16 @@ from .statevec import num_qubits_of
 _F64 = torch.float64
 
 
-def _bit_halves(x: torch.Tensor, q: int):
-    """(bit q = 0, bit q = 1) strided views of a flat plane."""
+def _bit_view(x: torch.Tensor, q: int) -> torch.Tensor:
+    """A plane as (batch..., high bits, bit q, low bits)."""
     n = num_qubits_of(x)
-    v = x.view(1 << (n - 1 - q), 2, 1 << q)
-    return v[:, 0], v[:, 1]
+    return x.view(x.shape[:-1] + (1 << (n - 1 - q), 2, 1 << q))
+
+
+def _bit_halves(x: torch.Tensor, q: int):
+    """(bit q = 0, bit q = 1) strided views of a plane."""
+    v = _bit_view(x, q)
+    return v[..., 0, :], v[..., 1, :]
 
 
 def probs_pair(re: torch.Tensor, im: Optional[torch.Tensor]) -> torch.Tensor:
@@ -34,7 +47,7 @@ def probs_pair(re: torch.Tensor, im: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def norm2_pair(re, im) -> torch.Tensor:
-    return torch.sum(probs_pair(re, im), dtype=_F64)
+    return torch.sum(probs_pair(re, im), dim=-1, dtype=_F64)
 
 
 def expval_pauli_product_z_pair(re, im, qubits: Sequence[int]
@@ -44,7 +57,7 @@ def expval_pauli_product_z_pair(re, im, qubits: Sequence[int]
     for q in sorted(set(int(q) for q in qubits)):
         _, one = _bit_halves(s, q)
         one.neg_()
-    return torch.sum(s, dtype=_F64)
+    return torch.sum(s, dim=-1, dtype=_F64)
 
 
 def _apply_pauli(pre, pim, ch: str, q: int):
@@ -57,10 +70,8 @@ def _apply_pauli(pre, pim, ch: str, q: int):
             pim = pim.clone()
             _bit_halves(pim, q)[1].neg_()
         return pre, pim
-    n = num_qubits_of(pre)
-
     def flip(x):
-        return x.view(1 << (n - 1 - q), 2, 1 << q).flip(1).reshape(-1)
+        return _bit_view(x, q).flip(-2).reshape(x.shape)
 
     if ch == "X":
         return flip(pre), None if pim is None else flip(pim)
@@ -85,16 +96,17 @@ def expval_pauli_string_pair(re, im, ops: Sequence[tuple]) -> torch.Tensor:
     for ch, q in ops:
         if ch != "I":
             pre, pim = _apply_pauli(pre, pim, ch, int(q))
-    total = torch.sum(re * pre, dtype=_F64)
+    total = torch.sum(re * pre, dim=-1, dtype=_F64)
     if im is not None and pim is not None:
-        total = total + torch.sum(im * pim, dtype=_F64)
+        total = total + torch.sum(im * pim, dim=-1, dtype=_F64)
     return total
 
 
 def expval_terms_pair(re, im, terms, coeffs) -> torch.Tensor:
     """Sum_k coeffs[k] * <P_k> for PauliOperator-style terms
-    [((char, qubit), ...), ...], as a float64 scalar tensor."""
-    total = torch.zeros((), dtype=_F64, device=re.device)
+    [((char, qubit), ...), ...], as a float64 tensor: 0-d, or ``(b,)`` for
+    a batch."""
+    total = torch.zeros(re.shape[:-1], dtype=_F64, device=re.device)
     for term, c in zip(terms, coeffs):
         ev = norm2_pair(re, im) if len(term) == 0 \
             else expval_pauli_string_pair(re, im, term)
@@ -152,9 +164,9 @@ def energy_pair(re, im, terms, coeffs) -> torch.Tensor:
 
 
 def prob_one_pair(re, im, qubit: int) -> torch.Tensor:
-    """P(qubit = 1)."""
+    """P(qubit = 1) (of each element)."""
     _, one = _bit_halves(probs_pair(re, im), qubit)
-    return torch.sum(one, dtype=_F64)
+    return torch.sum(one, dim=(-2, -1), dtype=_F64)
 
 
 def collapse_pair(re, im, qubit: int, outcome: int
@@ -179,29 +191,31 @@ _CHUNK = 1 << 22  # amplitudes per step of the general marginal
 
 def marginal_probs_pair(re, im, qubits: Sequence[int]) -> torch.Tensor:
     """Marginal probability vector over ``qubits`` (qubits[0] = least
-    significant bit of the outcome index), accumulated in float64. The
-    full register in order is the |amp|^2 vector itself."""
+    significant bit of the outcome index), accumulated in float64; ``(b,
+    2^k)`` rows for a batch. The full register in order is the |amp|^2
+    vector itself."""
     qubits = [int(q) for q in qubits]
     n = num_qubits_of(re)
     p = probs_pair(re, im)
     if qubits == list(range(n)):
         return p.to(_F64)
     k = len(qubits)
-    out = torch.zeros(1 << k, dtype=_F64, device=re.device)
+    out = torch.zeros(re.shape[:-1] + (1 << k,), dtype=_F64,
+                      device=re.device)
     for start in range(0, 1 << n, _CHUNK):
         stop = min(start + _CHUNK, 1 << n)
         idx = torch.arange(start, stop, dtype=torch.int64, device=re.device)
         bins = torch.zeros_like(idx)
         for j, q in enumerate(qubits):
             bins |= ((idx >> q) & 1) << j
-        out.index_add_(0, bins, p[start:stop].to(_F64))
+        out.index_add_(-1, bins, p[..., start:stop].to(_F64))
     return out
 
 
 def sample_pair(re, im, qubits: Sequence[int], shots: int,
                 generator: torch.Generator) -> torch.Tensor:
     """Draw ``shots`` outcomes (int32, as the JAX package's draws) from the
-    marginal over ``qubits``."""
+    marginal over ``qubits``; ``(b, shots)`` for a batch."""
     return sample_marginal(marginal_probs_pair(re, im, qubits), shots,
                            generator)
 
@@ -209,16 +223,87 @@ def sample_pair(re, im, qubits: Sequence[int], shots: int,
 def sample_marginal(marg: torch.Tensor, shots: int,
                     generator: torch.Generator) -> torch.Tensor:
     """Draw ``shots`` outcomes (int32) from a probability vector by
-    inverse-CDF search on its device."""
-    cdf = torch.cumsum(marg, 0)
-    u = torch.rand(shots, generator=generator, dtype=_F64,
-                   device=marg.device) * cdf[-1]
+    inverse-CDF search on its device; from each row of ``(b, K)``
+    probabilities, independently, into ``(b, shots)``, in one call."""
+    cdf = torch.cumsum(marg, -1)
+    u = torch.rand(marg.shape[:-1] + (shots,), generator=generator,
+                   dtype=_F64, device=marg.device) * cdf[..., -1:]
     out = torch.searchsorted(cdf, u, right=True, out_int32=True)
-    return out.clamp_(max=cdf.numel() - 1)
+    return out.clamp_(max=cdf.shape[-1] - 1)
 
 
 def slice_pair(re, im, start: int, size: int):
-    """(re, im) of amplitudes [start, start+size); im None for a real
-    state."""
-    return (re[start:start + size],
-            None if im is None else im[start:start + size])
+    """(re, im) of amplitudes [start, start+size) (of each element); im
+    None for a real state."""
+    return (re[..., start:start + size],
+            None if im is None else im[..., start:start + size])
+
+
+# ---------------------------------------------------------------------------
+# Batched double twins (the JAX package's signatures, pairsim.py:549-727)
+# ---------------------------------------------------------------------------
+
+def _batched(re, n: int, b: int):
+    if tuple(re.shape) != (b, 1 << n):
+        raise ValueError(f"expected ({b}, {1 << n}) planes, got "
+                         f"{tuple(re.shape)}")
+
+
+def init_pair_batched(n: int, b: int, dtype=None, device=None):
+    """|0...0> in each of b elements, as ``(b, 2^n)`` planes."""
+    re = torch.zeros((b, 1 << n), dtype=dtype or config.real_dtype(),
+                     device=device)
+    re[:, 0] = 1.0
+    return re, torch.zeros_like(re)
+
+
+def prob_one_pair_batched(re, im, qubit: int, n: int, b: int):
+    """Per-element P(qubit = 1), ``(b,)``."""
+    _batched(re, n, b)
+    return prob_one_pair(re, im, qubit)
+
+
+def collapse_pair_batched(re, im, qubit: int, outcomes, n: int, b: int):
+    """Project element k onto ``qubit = outcomes[k]`` and renormalize each
+    element (its norm guarded by ``config.eps()``)."""
+    _batched(re, n, b)
+    want = torch.as_tensor(outcomes, device=re.device).to(torch.int64)
+    keep = (torch.arange(2, device=re.device) == want.reshape(b, 1)).view(
+        b, 1, 2, 1)
+    re = (_bit_view(re, qubit) * keep).reshape(re.shape)
+    im = None if im is None else \
+        (_bit_view(im, qubit) * keep).reshape(im.shape)
+    inv = 1.0 / torch.sqrt(norm2_pair(re, im)).clamp(min=config.eps())
+    inv = inv.to(re.dtype).reshape(b, 1)
+    return re * inv, None if im is None else im * inv
+
+
+def expval_terms_pair_batched(re, im, terms, coeffs, n: int, b: int):
+    """Per-element sum_k coeffs[k] * <P_k>, ``(b,)``."""
+    _batched(re, n, b)
+    return expval_terms_pair(re, im, terms, coeffs)
+
+
+def marginal_probs_pair_batched(re, im, qubits, n: int, b: int):
+    """Per-element marginals, ``(b, 2^len(qubits))``, in float64."""
+    _batched(re, n, b)
+    return marginal_probs_pair(re, im, qubits)
+
+
+def sample_pair_batched(re, im, qubits, shots: int, generator, n: int,
+                        b: int):
+    """Per-element draws, ``(b, shots)`` int32."""
+    _batched(re, n, b)
+    return sample_pair(re, im, qubits, shots, generator)
+
+
+def slice_pair_batched(re, im, start: int, size: int, n: int, b: int):
+    """Per-element amplitude slices, a ``(b, size)`` pair."""
+    _batched(re, n, b)
+    return slice_pair(re, im, start, size)
+
+
+def statevector_pair_batched(re, im, n: int, b: int):
+    """The ``(b, 2^n)`` readback rows."""
+    _batched(re, n, b)
+    return re, im

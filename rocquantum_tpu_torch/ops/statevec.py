@@ -11,6 +11,12 @@ tensor. Views expose only the qubits an operation touches
 whatever n is. Sums accumulate in float64 and the readouts return float64
 values; draws take an explicit ``torch.Generator`` and are int32, as the JAX
 package's.
+
+A state may carry a leading batch axis, ``(b, 2^n)`` for b states (any b
+>= 1), where the JAX package vmaps the unbatched function: gates apply to
+every element (the batch folds into the top axis of a view and is never
+read as qubits), and readouts return one value, row or draw set per
+element.
 """
 
 from __future__ import annotations
@@ -31,6 +37,15 @@ def num_qubits_of(state: torch.Tensor) -> int:
     if (1 << n) != size:
         raise ValueError(f"state size {size} is not a power of two")
     return n
+
+
+def view_dims(state: torch.Tensor, qubits_desc: Sequence[int]) -> List[int]:
+    """:func:`exposed_view_dims` of the state with its batch (if any)
+    folded into the top axis."""
+    n = num_qubits_of(state)
+    dims = exposed_view_dims(n, qubits_desc)
+    dims[0] *= state.numel() >> n
+    return dims
 
 
 def _default_device():
@@ -81,21 +96,22 @@ def apply_matrix(state: torch.Tensor, matrix: torch.Tensor,
         raise ValueError(f"matrix shape {tuple(matrix.shape)} != "
                          f"{(1 << m, 1 << m)}")
     mat = torch.as_tensor(matrix, dtype=state.dtype, device=state.device)
-    # the consolidated low and high blocks: one matmul on a plain 2-D view
+    # the consolidated low and high blocks: one matmul on a plain view
     if targets == list(range(m)):
-        return (state.reshape(-1, 1 << m) @ mat.T).reshape(-1)
+        return (state.reshape(-1, 1 << m) @ mat.T).reshape(state.shape)
     if targets == list(range(n - m, n)):
-        return (mat @ state.reshape(1 << m, -1)).reshape(-1)
+        return (mat @ state.reshape(-1, 1 << m, 1 << (n - m))).reshape(
+            state.shape)
     desc = sorted(targets, reverse=True)
     axis_of = {q: 2 * i + 1 for i, q in enumerate(desc)}
     # matrix index MSB first: targets[m-1], ..., targets[0]
     src = [axis_of[targets[m - 1 - j]] for j in range(m)]
     rank = 2 * m + 1
     dst = list(range(rank - m, rank))
-    view = state.reshape(exposed_view_dims(n, desc)).movedim(src, dst)
+    view = state.reshape(view_dims(state, desc)).movedim(src, dst)
     shape = view.shape
     out = (view.reshape(-1, 1 << m) @ mat.T).reshape(shape)
-    return out.movedim(dst, src).reshape(-1)
+    return out.movedim(dst, src).reshape(state.shape)
 
 
 def apply_controlled_matrix(state: torch.Tensor, matrix: torch.Tensor,
@@ -113,13 +129,14 @@ def apply_controlled_matrix(state: torch.Tensor, matrix: torch.Tensor,
     n = num_qubits_of(state)
     desc = sorted(controls, reverse=True)
     out = state.clone()
-    view = out.view(exposed_view_dims(n, desc))
+    view = out.view(view_dims(out, desc))
     idx = tuple(1 if i % 2 == 1 else slice(None) for i in range(view.dim()))
     sub = view[idx]
     remaining = [q for q in range(n) if q not in set(controls)]
     pos = {q: i for i, q in enumerate(remaining)}
-    sub_new = apply_matrix(sub.reshape(-1), matrix, [pos[t] for t in targets])
-    view[idx] = sub_new.view(sub.shape)
+    sub_new = apply_matrix(sub.reshape(state.shape[:-1] + (-1,)), matrix,
+                           [pos[t] for t in targets])
+    view[idx] = sub_new.reshape(sub.shape)
     return out
 
 
@@ -127,10 +144,9 @@ def swap_index_bits(state: torch.Tensor, q1: int, q2: int) -> torch.Tensor:
     """Exchange index bits q1 and q2 (a qubit relabel)."""
     if q1 == q2:
         return state
-    n = num_qubits_of(state)
     desc = [max(q1, q2), min(q1, q2)]
-    view = state.reshape(exposed_view_dims(n, desc))
-    return view.transpose(1, 3).reshape(-1)
+    view = state.reshape(view_dims(state, desc))
+    return view.transpose(1, 3).reshape(state.shape)
 
 
 def permute_index_bits(state: torch.Tensor, dsts: Sequence[int],
@@ -145,9 +161,8 @@ def permute_index_bits(state: torch.Tensor, dsts: Sequence[int],
         return state
     if sorted(dsts) != sorted(srcs):
         raise ValueError(f"permutation mismatch: {dsts} vs {srcs}")
-    n = num_qubits_of(state)
     touched = sorted(set(dsts), reverse=True)
-    dims = exposed_view_dims(n, touched)
+    dims = view_dims(state, touched)
     axis_of = {b: 2 * j + 1 for j, b in enumerate(touched)}
     perm = list(range(len(dims)))
     for d, s in zip(dsts, srcs):
@@ -186,47 +201,57 @@ def _abs2(state: torch.Tensor) -> torch.Tensor:
 
 
 def _bit_view(state: torch.Tensor, qubit: int) -> torch.Tensor:
-    """The state as (high bits, qubit, low bits)."""
+    """The state as (batch..., high bits, qubit, low bits)."""
     n = num_qubits_of(state)
-    return state.reshape(1 << (n - 1 - qubit), 2, 1 << qubit)
+    return state.reshape(state.shape[:-1]
+                         + (1 << (n - 1 - qubit), 2, 1 << qubit))
 
 
 def prob_one(state: torch.Tensor, qubit: int) -> torch.Tensor:
-    """P(qubit = 1), a float64 0-d tensor."""
-    return torch.sum(_abs2(_bit_view(state, qubit)[:, 1]), dtype=_F64)
+    """P(qubit = 1), float64: 0-d, or ``(b,)`` for a batch."""
+    return torch.sum(_abs2(_bit_view(state, qubit)[..., 1, :]),
+                     dim=(-2, -1), dtype=_F64)
 
 
 def _renormalized(keep: torch.Tensor) -> torch.Tensor:
-    """``keep`` over its norm, guarded by the precision's eps."""
-    norm = torch.sqrt(torch.sum(_abs2(keep), dtype=_F64))
+    """``keep`` (batch..., high bits, 1 or 2, low bits) over its norm per
+    element, guarded by the precision's eps."""
+    norm = torch.sqrt(torch.sum(_abs2(keep), dim=(-3, -2, -1), dtype=_F64,
+                                keepdim=True))
     inv = 1.0 / torch.clamp(norm, min=config.eps())
     return keep * inv.to(keep.real.dtype)
 
 
 def collapse(state: torch.Tensor, qubit: int, outcome: int) -> torch.Tensor:
-    """Project onto ``qubit = outcome`` and renormalize."""
+    """Project onto ``qubit = outcome`` and renormalize (every element of
+    a batch onto the same outcome)."""
     st = _bit_view(state, qubit)
+    o = int(outcome)
     out = torch.zeros_like(st)
-    out[:, int(outcome)] = _renormalized(st[:, int(outcome)])
-    return out.reshape(-1)
+    out[..., o:o + 1, :] = _renormalized(st[..., o:o + 1, :])
+    return out.reshape(state.shape)
 
 
 def collapse_dyn(state: torch.Tensor, qubit: int,
                  outcome: torch.Tensor) -> torch.Tensor:
     """:func:`collapse` with the outcome (0 or 1) as a tensor, read on the
-    device: no host synchronization."""
+    device: no host synchronization. A batch takes one outcome per element
+    (``(b,)``)."""
     st = _bit_view(state, qubit)
-    idx = torch.as_tensor(outcome, device=state.device).to(
-        torch.int64).reshape(1)
+    lead = st.shape[:-3]
+    idx = torch.as_tensor(outcome, device=state.device).to(torch.int64)
+    idx = idx.reshape(lead + (1, 1, 1)).expand(
+        lead + (st.shape[-3], 1, st.shape[-1]))
     out = torch.zeros_like(st)
-    out.index_copy_(1, idx, _renormalized(st.index_select(1, idx)))
-    return out.reshape(-1)
+    out.scatter_(-2, idx, _renormalized(st.gather(-2, idx)))
+    return out.reshape(state.shape)
 
 
 def marginal_probs(state: torch.Tensor,
                    qubits: Sequence[int]) -> torch.Tensor:
     """Marginal probability vector over ``qubits`` (``qubits[0]`` the least
-    significant bit of the outcome index), float64.
+    significant bit of the outcome index), float64; ``(b, 2^k)`` rows for a
+    batch.
 
     The index bits are cut into runs from the top down: a run of dropped
     bits, or of kept bits that are also consecutive in ``qubits``. The
@@ -248,19 +273,22 @@ def marginal_probs(state: torch.Tensor,
             runs[-1][2] = pos.get(q)
             continue
         runs.append([kept, 1, pos.get(q)])
-    t = _abs2(state).reshape([1 << bits for _, bits, _ in runs])
-    drop = [i for i, r in enumerate(runs) if not r[0]]
+    lead = tuple(state.shape[:-1])
+    t = _abs2(state).reshape(lead + tuple(1 << bits for _, bits, _ in runs))
+    drop = [len(lead) + i for i, r in enumerate(runs) if not r[0]]
     t = t.sum(dim=drop, dtype=_F64) if drop else t.to(_F64)
     kept_at = [r[2] for r in runs if r[0]]
     order = sorted(range(len(kept_at)), key=lambda i: -kept_at[i])
-    return t.permute(order).reshape(-1)
+    order = list(range(len(lead))) + [len(lead) + i for i in order]
+    return t.permute(order).reshape(lead + (-1,))
 
 
 def sample(state: torch.Tensor, qubits: Sequence[int], shots: int,
            generator: torch.Generator) -> torch.Tensor:
     """``shots`` outcomes over ``qubits`` (int32) drawn from the marginal
     by inverse-CDF search on the state's device (``torch.multinomial``
-    takes at most 2^24 categories)."""
+    takes at most 2^24 categories); ``(b, shots)``, drawn independently per
+    element, for a batch."""
     from .pairsim import sample_marginal
     return sample_marginal(marginal_probs(state, qubits), shots, generator)
 
@@ -319,8 +347,9 @@ def apply_matrix_and_measure(state: torch.Tensor, matrix,
 # ---------------------------------------------------------------------------
 
 def state_slice_parts(state: torch.Tensor, start: int, size: int):
-    """(real, imag) of amplitudes [start, start + size)."""
-    sl = state[start:start + size]
+    """(real, imag) of amplitudes [start, start + size) (of each
+    element)."""
+    sl = state[..., start:start + size]
     return sl.real, sl.imag
 
 

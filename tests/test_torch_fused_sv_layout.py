@@ -41,19 +41,23 @@ def _indices(params, layout):
 
 
 def _bases(n, params):
+    """(element offset, tile base) of every block of the grid: block k
+    owns tile k & (2^(n - t) - 1) of element k >> (n - t)."""
     t, w = int(params["tile_bits"]), int(params["w"])
-    base = np.arange(1 << (n - t), dtype=np.int64) << w
+    block = np.arange(int(params["batch"]) << (n - t), dtype=np.int64)
+    base = (block & ((1 << (n - t)) - 1)) << w
     for q in params["lbits"][w:t].astype(np.int64):
         base = ((base >> q) << (q + 1)) | (base & ((1 << q) - 1))
-    return base
+    return (block >> (n - t)) << n, base
 
 
-def _global(n, params, layout, base):
+def _global(n, params, layout, bases):
+    offset, base = bases
     local = _indices(params, layout)
     g = np.zeros_like(local)
     for p, q in enumerate(params["lbits"][:int(params["tile_bits"])]):
         g |= _bit(local, p) << int(q)
-    return base[:, None, None] | g[None]
+    return (offset + base)[:, None, None] | g[None]
 
 
 def _source(s, base, tid):
@@ -69,12 +73,14 @@ def _source(s, base, tid):
 
 
 def emulate_launch(state, n, params, complex_mode):
-    """One kernel launch on a complex128 numpy state, in place."""
+    """One kernel launch on a flat complex128 numpy state of
+    ``params["batch"]`` elements, in place."""
     t, R = int(params["tile_bits"]), int(params["reg_bits"])
-    base = _bases(n, params)
+    bases = _bases(n, params)
+    base = bases[1]
     tid = np.arange(1 << (t - R), dtype=np.int64)
     reg = np.arange(1 << R, dtype=np.int64)
-    g = _global(n, params, 0, base)
+    g = _global(n, params, 0, bases)
     if params["gen_zero"]:
         a = np.where(g == 0, 1.0 + 0j, 0j)
     else:
@@ -110,28 +116,29 @@ def emulate_launch(state, n, params, complex_mode):
             y0, y1 = m[0] * x0 + m[1] * x1, m[2] * x0 + m[3] * x1
         a[..., j0] = np.where(on, y0, x0)
         a[..., j1] = np.where(on, y1, x1)
-    state[_global(n, params, cur, base)] = a
+    state[_global(n, params, cur, bases)] = a
 
 
 def emulate_pass(re, im, specs, gate_mats, pair_bits, real_flags,
                  num_qubits=None):
-    """fused_sv.apply_fused_layer as the kernel would run it, on numpy."""
-    n = num_qubits if re is None else re.size.bit_length() - 1
+    """fused_sv.apply_fused_layer as the kernel would run it, on numpy:
+    ``(2^n,)`` planes, or ``(b, 2^n)`` ones run as one batched launch per
+    scheduled launch."""
+    n = num_qubits if re is None else re.shape[-1].bit_length() - 1
+    batch = 1 if re is None else re.size >> n
     specs = fused_sv._normalize_specs(specs)
     pair_bits = fused_sv._check_specs(n, specs, pair_bits,
                                       fused_sv.window_bits(n),
                                       fused_sv.max_pairs(im is not None))
-    state = None if re is None else \
-        re.astype(np.complex128) + (0 if im is None else 1j * im)
-    if state is None:
-        state = np.zeros(1 << n, complex)
+    state = np.zeros(1 << n, complex) if re is None else \
+        (re.astype(np.complex128) + (0 if im is None else 1j * im)).ravel()
     for k, launch in enumerate(fused_sv.pass_schedule(n, specs,
                                                       im is not None)):
         assert launch.layouts[0].is_io and _final_layout(launch).is_io
         params = fused_sv.launch_params(n, launch, gate_mats, real_flags,
-                                        re is None and k == 0)
+                                        re is None and k == 0, batch)
         emulate_launch(state, n, params, complex_mode=im is not None)
-    return state
+    return state if re is None else state.reshape(re.shape)
 
 
 def _final_layout(launch):
@@ -226,6 +233,71 @@ def test_schedule_matches_reference_in_every_bit_class(n, mode):
         np.testing.assert_allclose(got.imag, want[1].numpy(), atol=ATOL)
     else:
         np.testing.assert_allclose(got.imag, 0.0, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["real", "complex"])
+@pytest.mark.parametrize("n", [15, 16])
+def test_batched_launch_matches_reference_per_element(n, mode):
+    """A batch of 3 states in one launch per scheduled launch (grid of 3 *
+    2^(n - t) blocks, element offsets from the block index) lands, element
+    by element, on the batched plain version, which equals the unbatched
+    plain version of each element."""
+    rng = np.random.default_rng(n * 11 + len(mode))
+    b = 3
+    specs = _class_specs(rng, n, PAIRS[n])
+    real = mode == "real"
+    gm = _matrices(rng, specs, real)
+    flags = [real] * len(specs)
+    v = rng.normal(size=(2, b, 1 << n))
+    v /= np.linalg.norm(v, axis=(0, 2), keepdims=True)
+    re = v[0].astype(np.float32)
+    im = None if real else v[1].astype(np.float32)
+    got = emulate_pass(re, im, specs, gm, PAIRS[n], flags)
+    assert got.shape == (b, 1 << n)
+    want = fused_sv.apply_fused_layer_reference(
+        torch.from_numpy(re), None if im is None else torch.from_numpy(im),
+        specs, gm, real_flags=flags)
+    for k in range(b):
+        one = fused_sv.apply_fused_layer_reference(
+            torch.from_numpy(re[k]),
+            None if im is None else torch.from_numpy(im[k]), specs, gm,
+            real_flags=flags)
+        for plane, row in zip(want, one):
+            if plane is not None:
+                assert torch.equal(plane[k], row)
+        np.testing.assert_allclose(got[k].real, want[0][k].numpy(),
+                                   atol=ATOL)
+        np.testing.assert_allclose(got[k].imag, 0.0 if real
+                                   else want[1][k].numpy(), atol=ATOL)
+
+
+def test_unbatched_parameter_block_only_gains_the_batch_field():
+    """A b = 1 block is the block of the kernel before batching (the
+    4008-byte layout without ``batch``) with the field inserted after
+    ``gen_zero``: every other byte in place; b = 3 differs only there."""
+    rng = np.random.default_rng(4)
+    n = 16
+    specs = fused_sv._normalize_specs(_class_specs(rng, n, PAIRS[n]))
+    gm = _matrices(rng, specs, real=False)
+    flags = [False] * len(specs)
+    old_dtype = np.dtype([(name, fused_sv._PARAMS_DTYPE.fields[name][0])
+                          for name in fused_sv._PARAMS_DTYPE.names
+                          if name != "batch"])
+    assert old_dtype.itemsize == 4008
+    at = fused_sv._PARAMS_DTYPE.fields["batch"][1]
+    assert at == old_dtype.fields["lbits"][1]
+    for launch in fused_sv.pass_schedule(n, specs, True):
+        one = fused_sv.launch_params(n, launch, gm, flags, False)
+        three = fused_sv.launch_params(n, launch, gm, flags, False, 3)
+        assert int(one["batch"]) == 1 and int(three["batch"]) == 3
+        old = np.zeros((), old_dtype)
+        for name in old_dtype.names:
+            old[name] = one[name]
+        raw = one.reshape(1).view(np.uint8)
+        assert bytes(raw[:at]) + bytes(raw[at + 4:]) == \
+            old.reshape(1).view(np.uint8).tobytes()
+        diff = np.flatnonzero(raw != three.reshape(1).view(np.uint8))
+        assert set(diff) <= set(range(at, at + 4))
 
 
 @pytest.mark.parametrize("n", [15, 20])

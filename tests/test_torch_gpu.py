@@ -852,3 +852,145 @@ def test_tensor_svd_on_the_card_is_float32_grade(cuda):
     exact = torch.linalg.svdvals(m, driver="gesvd")
     assert float((s.data.double() - exact).abs().max()) <= \
         1e-4 * float(exact.max())
+
+
+# ---- batched passes and the batched/dynamic circuit paths -----------------
+
+@pytest.mark.parametrize("mode", ["real", "complex"])
+@pytest.mark.parametrize("n", [15, 20])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_batched_kernel_matches_reference(cuda, b, n, mode):
+    """One pass over (b, 2^n) planes, b distinct random states: the
+    scheduled launches once for the whole batch (not b times), each
+    element within 1e-5 of max|amp| of the batched plain version."""
+    pair_bits = {15: (11, 14), 20: (11, 17, 19)}[n]
+    rng = np.random.default_rng(b * 100 + n + len(mode))
+    specs, mats, flags = _random_pass(rng, n, pair_bits, mode == "real",
+                                      count=48)
+    gm = _pack_f32(mats)
+    v = rng.normal(size=(2, b, 1 << n))
+    v /= np.linalg.norm(v, axis=(0, 2), keepdims=True)
+    re = torch.from_numpy(v[0].astype(np.float32)).to(cuda)
+    im = None if mode == "real" else \
+        torch.from_numpy(v[1].astype(np.float32)).to(cuda)
+    want = fused_sv.apply_fused_layer_reference(re, im, specs, gm,
+                                                real_flags=flags)
+    launches = len(fused_sv.pass_schedule(
+        n, fused_sv._normalize_specs(specs), im is not None))
+    before = (fused_sv.LAUNCHES, fused_sv.BATCHED_LAUNCHES)
+    got = fused_sv.apply_fused_layer(
+        re.clone(), None if im is None else im.clone(), specs, gm,
+        pair_bits=pair_bits, real_flags=flags)
+    torch.cuda.synchronize()
+    assert fused_sv.LAUNCHES == before[0] + launches
+    assert fused_sv.BATCHED_LAUNCHES == before[1] + launches * (b > 1)
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        assert g.shape == (b, 1 << n)
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-5 * top
+
+
+def test_batched_kernel_grid_of_4096_elements(cuda):
+    """b = 4096 at n = 15 (a 2^27-amplitude complex pair): the grid is
+    4096 * 2^(15 - t) blocks, past gridDim.y's 65535; every element lands
+    on its own row."""
+    n, b = 15, 4096
+    rng = np.random.default_rng(4096)
+    specs, mats, flags = _random_pass(rng, n, (11, 14), False, count=24)
+    gm = _pack_f32(mats)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4096)
+    re = torch.randn((b, 1 << n), generator=gen, device=cuda) * 2 ** (-n / 2)
+    im = torch.randn((b, 1 << n), generator=gen, device=cuda) * 2 ** (-n / 2)
+    want = fused_sv.apply_fused_layer_reference(re, im, specs, gm,
+                                                real_flags=flags)
+    got = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, gm,
+                                     pair_bits=(11, 14), real_flags=flags)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        top = float(w.abs().max())
+        err = (g - w).abs().amax(dim=1)
+        assert float(err.max()) <= 1e-5 * top
+
+
+def test_batched_wrapper_rejects_mismatched_planes(cuda):
+    re = torch.zeros((3, 1 << 15), device=cuda)
+    with pytest.raises(ValueError):
+        fused_sv.apply_fused_layer(re, torch.zeros((2, 1 << 15), device=cuda),
+                                   [("U", 0)], np.zeros((1, 2, 2, 2),
+                                                        np.float32))
+
+
+def test_batched_circuit_on_the_card_matches_cpu(cuda):
+    """Circuit(16, sim, batch_size=3) on the card: a measure (host draws,
+    the same outcomes as on the CPU), a ring ansatz through the batched
+    kernel, the readouts; against the same circuit on the CPU."""
+    n, b = 16, 3
+    rng = np.random.default_rng(16)
+    theta = rng.normal(size=n)
+
+    def run(device):
+        c = rq.Circuit(n, rq.Simulator(seed=9, device=device), batch_size=b)
+        c.h(0)
+        outcomes, _ = c.measure(0)
+        for q in range(n):
+            c.ry(float(theta[q]), q)
+            c.rz(0.3, q)
+        for q in range(n):
+            c.cx(q, (q + 1) % n)
+        energy = c.expval(rq.PauliOperator({"Z0 Z1": 1.0, "X3": 0.5}))
+        return c, outcomes, energy
+
+    before = fused_sv.BATCHED_LAUNCHES
+    c, outcomes, energy = run(cuda)
+    torch.cuda.synchronize()
+    assert fused_sv.BATCHED_LAUNCHES > before
+    ref, ref_outcomes, ref_energy = run("cpu")
+    np.testing.assert_array_equal(outcomes, ref_outcomes)
+    got, want = c.get_statevector(), ref.get_statevector()
+    assert got.shape == (b, 1 << n)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(energy, ref_energy, rtol=1e-4, atol=1e-5)
+    assert c.sample([0, 1], 100).shape == (b, 100)
+
+
+def test_run_dynamic_on_the_card():
+    """GHZ on 16 qubits with a measured-and-corrected first qubit, and
+    teleportation, through the local backend on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from rocquantum_tpu_torch import core
+    from rocquantum_tpu_torch.compiler.dynamic import expval_z_dynamic
+    from rocquantum_tpu_torch.compiler.qasm_parser import parse_qasm3_program
+
+    n = 16
+    text = (f"OPENQASM 3.0;\nqubit[{n}] q;\nbit[1] c;\nh q[0];\n"
+            + "".join(f"cx q[{q}], q[{q + 1}];\n" for q in range(n - 1))
+            + "c[0] = measure q[0];\nif (c[0] == 1) {\n"
+            + "".join(f"x q[{q}];\n" for q in range(1, n)) + "}\n")
+    core.set_target("local")
+    backend = core.get_active_backend()
+    before = fused_sv.BATCHED_LAUNCHES
+    hist = backend.get_job_result(backend.submit_job(text, 256))
+    assert fused_sv.BATCHED_LAUNCHES > before
+    assert set(hist) <= {"0" * n, "0" * (n - 1) + "1"}
+    assert sum(hist.values()) == 256
+    theta = np.pi / 3
+    teleport = f"""
+    OPENQASM 3.0;
+    qubit[3] q;
+    bit[2] c;
+    ry({theta}) q[0];
+    h q[1];
+    cx q[1], q[2];
+    cx q[0], q[1];
+    h q[0];
+    c[0] = measure q[0];
+    c[1] = measure q[1];
+    if (c[1] == 1) {{ x q[2]; }}
+    if (c[0] == 1) {{ z q[2]; }}
+    """
+    ez = expval_z_dynamic(parse_qasm3_program(teleport), 2, 4096, seed=1)
+    assert abs(ez - np.cos(theta)) < 0.05

@@ -253,6 +253,64 @@ print("ok")
 """
 
 
+# batched and dynamic circuits, QEC, checkpoints and phase timers
+_BATCHED_AND_DYNAMIC = _BLOCK_JAX + r"""
+import os
+import tempfile
+import numpy as np
+import rocquantum_tpu_torch as rq
+from rocquantum_tpu_torch import qec
+from rocquantum_tpu_torch.backends.local import LocalBackend
+from rocquantum_tpu_torch.compiler import dynamic
+from rocquantum_tpu_torch.compiler.qasm_parser import parse_qasm3_program
+from rocquantum_tpu_torch.qec.codes import steane_code
+from rocquantum_tpu_torch.qec.decoders import steane_decoder
+from rocquantum_tpu_torch.utils import checkpoint, profiling
+
+c = rq.Circuit(3, rq.Simulator(seed=5, device="cpu"), batch_size=3)
+c.h(0)
+outcomes, probs = c.measure(0)
+c.cx(0, 1)
+psi = c.get_statevector()
+assert psi.shape == (3, 8) and np.allclose(probs, 0.5, atol=1e-6)
+for b in range(3):
+    assert abs(abs(psi[b, 3 * int(outcomes[b])]) - 1) < 1e-6
+assert c.expval(rq.PauliOperator("Z0 Z1")).shape == (3,)
+path = os.path.join(tempfile.mkdtemp(), "ckpt.npz")
+checkpoint.save_circuit_checkpoint(path, c)
+c2 = rq.Circuit(3, rq.Simulator(device="cpu"), batch_size=3)
+checkpoint.restore_circuit_checkpoint(path, c2)
+assert np.array_equal(c2.get_statevector(), psi)
+
+text = "OPENQASM 3.0;\nqubit[2] q;\nbit[1] c;\nh q[0];\n" \
+    "c[0] = measure q[0];\nif (c[0] == 1) { x q[1]; }"
+hist = dynamic.run_dynamic(parse_qasm3_program(text), 64, seed=3,
+                           device="cpu")
+assert set(hist) <= {"00", "11"} and sum(hist.values()) == 64, hist
+backend = LocalBackend(device="cpu")
+assert backend.get_job_result(backend.submit_job(text, 10)) != {}
+
+def logical_zero_with_y3(q):
+    for piv, rest in ((0, (2, 4, 6)), (1, (2, 5, 6)), (3, (4, 5, 6))):
+        q.h(piv)
+        for d in rest:
+            q.cx(piv, d)
+    q.y(3)
+
+timer = profiling.PhaseTimer(device="cpu")
+with timer.phase("qec"):
+    result = qec.QEC_Experiment(rq.Simulator(device="cpu")).run_single_round(
+        steane_code.SteaneCode(), steane_decoder.SteaneDecoder(),
+        rq.kernel(logical_zero_with_y3), 13, list(range(7, 13)))
+assert result["syndrome"] == [0, 0, 1, 0, 0, 1], result
+assert "Y3" in result["correction_applied"]
+assert timer.summary()["qec"]["count"] == 1
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -284,6 +342,10 @@ def test_tensornet_and_df64_readout_run_with_jax_blocked():
 
 def test_program_front_ends_run_with_jax_blocked():
     _run_blocked(_FRONT_ENDS)
+
+
+def test_batched_dynamic_qec_and_checkpoints_run_with_jax_blocked():
+    _run_blocked(_BATCHED_AND_DYNAMIC)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
