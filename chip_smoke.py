@@ -116,17 +116,38 @@ Phases:
      (4096 shots) through set_target("local"); both QEC codes for every
      single-qubit error on the card; a checkpoint round trip of a batch
      of 8 at n = 20; PhaseTimer over the parts.
+  16. the sharded engine (since its port), on virtual shards of the card
+     (make_mesh(k, devices=[cuda:0] * k); over default_mesh() too where
+     there are two cards or more): the 8-layer ring at n = 30 over 8
+     shards through Circuit(mesh=...) (18 relabels, each one all-to-all
+     round, and 108 complex passes, each one launch over the 8 shard
+     rows), its rounds timed with CUDA events beside their copy bound,
+     the TFIM energy from per-shard partials, one merged restore and one
+     gather, against the unsharded flat flush; the sharded fill at its
+     (8, 2^27) shape against torch.zeros with [0, 0] set, and the first
+     pass on the 8 shard rows against its plain version, within
+     SHARD_PASS_RTOL of max|amp|; df64 at n = 26 and exact double (QFT)
+     at n = 20 over 4 shards; density n = 14 over 4 (f32 and df64);
+     bench.py's ring over a 4-shard mesh; the pinned exchange budget at
+     n = 30. In 16.2 and 16.4 a run of its own before the counted one
+     holds the path's own kernel calls numbered 0, 1, 3, 7, ... (a df64
+     shard's 2^24 planes; the density's 4 rows of 2^26 in f32, a shard's
+     2^26 planes in df64) against the plain version on copies of their
+     inputs, within SHARD_PASS_RTOL or SHARD_DF64_PASS_RTOL of max|amp|.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
-14's ansatz requests, 15.1's batched requests, and the probe's R = 2^17
-call of each dot) runs
+14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
+flushes, and the probe's R = 2^17 call of each dot) runs
 with every launch count set to 0 just before it and read just after; the
 kernels line gives phase 12's counts as "density_launches" and its ms per
 pass of the density plans as "density_ms", phase 14's as
 "flat_launches" and its complex pass's times and bound as "flat_ms",
 "flat_plain_ms", "flat_bound_ms" and "flat_max_abs_err", and phase
 15.1's as "batched_launches", "batched_ms", "batched_plain_ms",
-"batched_bound_ms" and "batched_max_abs_err".
+"batched_bound_ms" and "batched_max_abs_err", and phase 16's (16.1 f32
+and fill, 16.2 df64) as "sharded_launches" and the largest error of
+its checks against the plain version (16.1's fill and pass, 16.2's and
+16.4's held calls) as "sharded_max_abs_err".
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -217,6 +238,15 @@ DYN_FRACTION = (0.45, 0.55)
 TELEPORT_SHOTS = 4096
 TELEPORT_TOL = 0.03       # <Z> of the teleported qubit vs cos(pi/3)
 CKPT_N = 20
+SHARD_N = 30          # the JAX package's sharded north star, cut to 8 GiB
+SHARDS = 8            # virtual shards of one card: 2^27 amplitudes each
+SHARD_DF64_N = 26
+SHARD_DOUBLE_N = 20
+SMALL_SHARDS = 4
+SHARD_TOL = 1e-5      # f32 amplitudes: max abs error / max|amp|
+SHARD_DOUBLE_TOL = 1e-12
+SHARD_PASS_RTOL = 1e-5        # a sharded f32 pass, kernel vs plain, of
+SHARD_DF64_PASS_RTOL = 1e-12  # max|amp|; the df64 pass, promoted to f64
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -667,6 +697,8 @@ def main():
                       rotate, region_dot, requests, phase4_energies, dev)
     batched = batched_phase(rq, interpreter, fused_sv, fused_df64, rotate,
                             region_dot, dev)
+    shard = sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate,
+                          region_dot, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -688,6 +720,8 @@ def main():
         "flat_bound_ms": flat["bound_ms"],
         "flat_max_abs_err": flat["max_abs_err"],
         **batched,
+        "sharded_launches": shard["fused_layer"],
+        "sharded_max_abs_err": shard["errors"]["fused_layer"],
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
@@ -695,6 +729,8 @@ def main():
         "replaces": "rocquantum_tpu/ops/pallas_sv.py:1667",
         **init,
         "density_launches": density["fused_layer_init"],
+        "sharded_launches": shard["fused_layer_init"],
+        "sharded_max_abs_err": shard["errors"]["fused_layer_init"],
     }, {
         "name": "fused_layer_df64",
         "route": "cuda",
@@ -703,6 +739,8 @@ def main():
         **df,
         "density_launches": density["fused_layer_df64"],
         "density_ms": density_ms["fused_layer_df64"],
+        "sharded_launches": shard["fused_layer_df64"],
+        "sharded_max_abs_err": shard["errors"]["fused_layer_df64"],
     }, {
         "name": "rotate_bits",
         "route": "cuda",
@@ -1756,13 +1794,20 @@ def shift_gradient(rq, prog, theta, ks):
     return np.asarray(out)
 
 
-def wall(fn):
-    """(result, seconds) of ``fn()``, synchronized on both ends."""
+def sync_all():
+    """Wait for every CUDA device."""
     import torch
-    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()``, every device synchronized on both
+    ends."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -3002,6 +3047,535 @@ def qec_on_the_card(rq, qec, dev):
                       f"{type(code).__name__} {kind}{q} correction")
             cases += 1
     return cases
+
+
+class _HostTimer:
+    """The start or stop of a round timed on the host after a
+    synchronization of every device (``elapsed_time`` as an event's)."""
+
+    def record(self):
+        sync_all()
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, stop):
+        return (stop.t - self.t) * 1e3
+
+
+@contextlib.contextmanager
+def timed_exchanges(sharded, log, host=False):
+    """Record the time and moved bytes of every relabel of a sharded state
+    (``log`` gets (start, stop, bytes) per round): CUDA events on the
+    current device, which do not synchronize, or (``host``, for shards on
+    several cards) host time between synchronizations of every device."""
+    import torch
+    inner = sharded.permute_bits
+
+    def timed(*args, **kwargs):
+        start, stop = (_HostTimer(), _HostTimer()) if host else (
+            torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+        before = sharded.BYTES_MOVED
+        start.record()
+        out = inner(*args, **kwargs)
+        stop.record()
+        log.append((start, stop, sharded.BYTES_MOVED - before))
+        return out
+
+    sharded.permute_bits = timed
+    try:
+        yield
+    finally:
+        sharded.permute_bits = inner
+
+
+@contextlib.contextmanager
+def held_to_plain(module, name, plain, promote, errs):
+    """Hold the calls of ``module.name`` numbered 2^j - 1 in the block (0,
+    1, 3, 7, ...: early and late passes, several shards) against ``plain``
+    on copies of the same inputs. These are the path's own launches; the
+    plain version launches nothing. ``errs`` gets (call, shape, max abs
+    error, max|plain output|) per held call, the planes read through
+    ``promote``."""
+    import torch
+    kernel_fn = getattr(module, name)
+    calls = [0]
+
+    def held(*args, **kwargs):
+        k = calls[0]
+        calls[0] += 1
+        if k & (k + 1):
+            return kernel_fn(*args, **kwargs)
+        ins = [a.clone() if torch.is_tensor(a) else a for a in args]
+        got = kernel_fn(*args, **kwargs)
+        want = plain(*ins, **kwargs)
+        del ins
+        err = top = 0.0
+        for a, b in zip(promote(got), promote(want)):
+            if b is not None:
+                err = max(err, float((a - b).abs().max()))
+                top = max(top, float(b.abs().max()))
+        errs.append((k, None if args[0] is None else tuple(args[0].shape),
+                     err, top))
+        return got
+
+    setattr(module, name, held)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, kernel_fn)
+
+
+def held_report(what, errs, calls, rtol):
+    """Check every held call of :func:`held_to_plain` within ``rtol`` of
+    max|amp| and print them; returns the largest absolute error."""
+    check(errs, f"{what}: no call held to the plain version")
+    for k, shape, err, top in errs:
+        check(err <= rtol * top, f"{what}: call {k} on {shape}: {err} "
+              f"of max|amp| {top}")
+    worst = max(err / top if top else err for _, _, err, top in errs)
+    print(f"{what}: calls {[k for k, *_ in errs]} of {calls[0]} (shapes "
+          f"{sorted({str(shape) for _, shape, _, _ in errs})}) held to the plain "
+          f"version: max abs err {max(e for *_, e, _ in errs):.3e}, at most "
+          f"{worst:.3e} of max|amp| (limit {rtol:g})")
+    return max(e for *_, e, _ in errs)
+
+
+def sharded_plan(interpreter, PallasBlock, kernel, ir, n, n_global):
+    """(relabels, planned passes, their launches, plan) of a sharded flush
+    of ``ir`` from the identity layout on ``kernel`` (ops/fused_sv.py: the
+    complex carry of the f32 flush, with its low block; ops/fused_df64.py:
+    the df64 real carry): the relabel ops the scheduler emits, the kernel
+    passes the local plan makes and the launches they take."""
+    from rocquantum_tpu_torch.compiler.sharded_schedule import \
+        schedule_for_sharding
+    ops, _ = interpreter.parametrize(ir.ops)
+    sched, _ = schedule_for_sharding(ops, n, n_global)
+    L = n - n_global
+    f32 = kernel.__name__.endswith("fused_sv")
+    low = min(interpreter.default_widths(n, sharded=True)[0], L) if f32 \
+        else 0
+    plan = interpreter.plan_items(sched, L, low_width=low)
+    passes = launches = 0
+    for item in plan:
+        if not isinstance(item, PallasBlock):
+            continue
+        kinds, supports = zip(*(interpreter._classify_spec(op)
+                                for op in item.ops))
+        for kp in interpreter.kernel_plan(L, kinds, supports, kernel,
+                                          complex_carry=f32):
+            specs = tuple((kinds[i],) + tuple(p)
+                          for i, p in zip(kp.gate_idx, kp.positions))
+            passes += 1
+            launches += len(
+                kernel.pass_schedule(L, specs, True, kernel.F32_RULE)
+                if f32 else kernel.pass_schedule(L, specs, False))
+    relabels = sum(op.name in ("SWAP_BITS", "PERMUTE_BITS") for op in sched)
+    return relabels, passes, launches, plan
+
+
+def sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
+                  dev):
+    """Phase 16: the sharded engine on virtual shards of the card
+    (``make_mesh(k, devices=[cuda:0] * k)``): an f32 Circuit at n = 30 over
+    8 shards against the unsharded flat path, df64 at n = 26 and exact
+    double at n = 20 over 4, density at n = 14 over 4 (f32 and df64), a
+    mesh-spread tensor-network ring and the pinned exchange budget at n =
+    30. Returns the launches of the sharded f32, fill and df64 paths."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler.passes import PallasBlock
+    from rocquantum_tpu_torch.models import qft_ir
+    from rocquantum_tpu_torch.ops import df64, pairsim
+    from rocquantum_tpu_torch.ops import statevec as sv
+    from rocquantum_tpu_torch.parallel import (default_mesh, make_mesh,
+                                               sharded)
+    from rocquantum_tpu_torch.tensornet import Tensor, TensorNetwork
+
+    t_phase = time.perf_counter()
+    gib = 1 << 30
+    rq.set_precision("single")
+
+    # ---- 16.1 f32 Circuit, n = 30 over 8 shards ---------------------------
+    n, k = SHARD_N, SHARDS
+    mesh = make_mesh(k, devices=[dev] * k)
+    rng = np.random.default_rng(16)
+    theta = rng.normal(size=n * ANSATZ_LAYERS)
+    ir = rq.trace_kernel(ring_kernel, n, *theta)
+    hamiltonian = tfim(rq, n)
+    terms = [tuple(ops) for ops, _ in hamiltonian.terms]
+    coeffs = [c for _, c in hamiltonian.terms]
+    n_global = sharded.num_global_qubits(mesh)
+    relabels, passes, planned_launches, plan = sharded_plan(
+        interpreter, PallasBlock, fused_sv, ir, n, n_global)
+
+    def request(circ, log, seen, host=False):
+        circ.reset()
+        ring_kernel(circ, *theta)
+        with timed_exchanges(sharded, log, host), \
+                recording_batches(fused_sv, seen):
+            _, t = wall(circ.flush)
+        return t
+
+    # the sharded fill at its (8, 2^27) shape against its plain version
+    filled = sharded.init_state(n, sharded.state_sharding(mesh),
+                                torch.complex64, "complex").parts[0][0]
+    plain = torch.zeros((k, 1 << (n - n_global)), dtype=torch.complex64,
+                        device=dev)
+    plain[0, 0] = 1
+    torch.cuda.synchronize()
+    fill_err = float((filled - plain).abs().max())
+    check(fill_err == 0.0 and filled.shape == plain.shape,
+          f"sharded fill vs plain: {fill_err}, {tuple(filled.shape)}")
+    print(f"sharded fill {tuple(filled.shape)} complex64 vs torch.zeros "
+          f"with [0, 0] set: max abs err {fill_err}")
+    del filled, plain
+    torch.cuda.empty_cache()
+
+    circ = rq.Circuit(n, rq.Simulator(seed=16, device=dev), mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_first = request(circ, [], [])
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    sharded.reset_collectives()
+    log, seen = [], []
+    t_warm = request(circ, log, seen)
+    launches = fused_sv.LAUNCHES
+    batched_launches = fused_sv.BATCHED_LAUNCHES
+    fills = fused_sv.ZERO_LAUNCHES
+    flush_counts = sharded.count_collectives()
+    flush_bytes = sharded.BYTES_MOVED
+    energy, t_energy = wall(lambda: circ.expval(hamiltonian))
+    norm = float(sharded.norm2(circ.state))
+    check(len(seen) == passes and set(seen) == {k},
+          f"sharded flush: {len(seen)} layer calls for {passes} planned "
+          f"passes, batches {sorted(set(seen))}")
+    check(launches == planned_launches == batched_launches,
+          f"sharded flush: {launches} launches ({batched_launches} batched) "
+          f"for {planned_launches} planned")
+    check(fused_df64.LAUNCHES == 0 and rotate.LAUNCHES == 0 and fills == 1,
+          "the sharded f32 path launched the f32 kernel and one fill")
+    check(flush_counts["all-to-all"] == relabels == len(log)
+          and flush_counts["all-gather"] == 0,
+          f"exchange rounds {flush_counts} for {relabels} relabels")
+    torch.cuda.synchronize()
+    rounds = [(s.elapsed_time(e), b) for s, e, b in log]
+    exch_ms = sum(ms for ms, _ in rounds)
+    exch_bound = sum(2 * b for _, b in rounds) / HBM_BYTES_PER_S * 1e3
+    log_restore = []
+    with timed_exchanges(sharded, log_restore):
+        circ._restore_identity_layout()
+    torch.cuda.synchronize()
+    restore = [(s.elapsed_time(e), b) for s, e, b in log_restore]
+    got = sharded.gather(circ.state)[0]
+    counts = sharded.count_collectives()
+    check(counts["all-gather"] == 1 and len(restore) == 1
+          and counts["all-to-all"] == relabels + 1,
+          f"one merged restore and one gather at the read-back: {counts}")
+    peak = (torch.cuda.max_memory_allocated() - base) / gib
+    print(f"sharded n={n} over {k} shards of one card ({1 << (n - n_global)}"
+          f" amplitudes a shard): {relabels} relabels scheduled, "
+          f"{passes} planned complex passes, each one call over the {k} "
+          f"rows: {launches} launches ({planned_launches} planned, all "
+          f"batched), {fills} fill")
+    print(f"sharded flush: first (schedules, plans) {t_first * 1e3:.2f} ms, "
+          f"warm {t_warm * 1e3:.2f} ms; {len(rounds)} all-to-all rounds, "
+          f"{flush_bytes / gib:.3f} GiB moved between shards, "
+          f"{exch_ms:.2f} ms of rounds (each with its two local permutes) "
+          f"beside a copy bound of {exch_bound:.2f} ms (2 x bytes / 3.35 "
+          f"TB/s); per round ms {[round(ms, 3) for ms, _ in rounds]}")
+    print(f"sharded restore: one merged relabel, "
+          f"{[round(ms, 3) for ms, _ in restore]} ms, "
+          f"{sum(b for _, b in restore) / gib:.3f} GiB; collectives "
+          f"{counts}; energy {energy:.7f} in {t_energy * 1e3:.2f} ms, norm "
+          f"{norm:.7f}; peak {peak:.2f} GiB over {base / gib:.2f} GiB")
+    # the first planned pass, kernel against plain, on the shard rows
+    first = next(item for item in plan if isinstance(item, PallasBlock))
+    kinds, supports, gm, flags = interpreter.pallas_block_specs(
+        first, interpreter._host_params(theta))
+    kp = interpreter.kernel_plan(n - n_global, kinds, supports,
+                                 complex_carry=True)[0]
+    idx = list(kp.gate_idx)
+    specs = tuple((kinds[i],) + tuple(p) for i, p in zip(idx, kp.positions))
+    fl = [flags[i] for i in idx]
+    re, im = sv.state_to_parts(circ.state.parts[0][0])
+    del circ
+    torch.cuda.empty_cache()
+    ref = fused_sv.apply_fused_layer_reference(re, im, specs, gm[idx],
+                                               real_flags=fl)
+    out = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, gm[idx],
+                                     pair_bits=kp.pair_bits, real_flags=fl)
+    torch.cuda.synchronize()
+    pass_err = max(max_err(out[0], ref[0]), max_err(out[1], ref[1]))
+    pass_top = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+    check(pass_err <= SHARD_PASS_RTOL * pass_top,
+          f"sharded pass vs plain: {pass_err} of max|amp| {pass_top}")
+    del ref, out
+
+    def one_pass(fn_layer):
+        def run(reps):
+            x, y = re.clone(), im.clone()
+            for _ in range(reps):
+                x, y = fn_layer(x, y, specs, gm[idx], pair_bits=kp.pair_bits,
+                                real_flags=fl)
+            return reps
+        return run
+
+    turns = time_turns(one_pass(fused_sv.apply_fused_layer),
+                       one_pass(fused_sv.apply_fused_layer_reference), 4)
+    pass_bound, pass_bound_by = bound_ms(n, [(specs, fl)], 2,
+                                         complex_state=True, df=False)
+    print(f"sharded pass ({k} rows of 2^{n - n_global}), kernel vs plain "
+          f"{pass_err:.3e} ({pass_err / pass_top:.3e} of max|amp| "
+          f"{pass_top:.3e}, limit {SHARD_PASS_RTOL:g}); ms in turns: plain {turns[0]:.3f}, kernel "
+          f"{turns[1]:.4f}, kernel {turns[2]:.4f}, plain {turns[3]:.3f}; "
+          f"bound {pass_bound:.4f} ({pass_bound_by})")
+    del re, im
+    torch.cuda.empty_cache()
+    # the unsharded flat path, after the sharded state is freed
+    fn = interpreter.compile_ir(ir)
+    start = sv.init_state(n, device=dev)
+    ref, t_ref_first = wall(lambda: fn(start))
+    del ref
+    ref, t_ref = wall(lambda: fn(start))
+    del start
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / top
+    e_ref = float(pairsim.expval_terms_pair(ref.real, ref.imag, terms,
+                                            coeffs))
+    rel = abs(energy - e_ref) / abs(e_ref)
+    del got, ref
+    torch.cuda.empty_cache()
+    check(err <= SHARD_TOL, f"sharded amplitudes: {err} of max|amp|")
+    check(rel <= ENERGY_RTOL, f"sharded energy rel error {rel}")
+    check(abs(norm - 1.0) <= NORM_TOL, f"sharded norm {norm}")
+    print(f"unsharded flat flush n={n}: first {t_ref_first * 1e3:.2f} ms, "
+          f"warm {t_ref * 1e3:.2f} ms (sharded warm {t_warm * 1e3:.2f}, "
+          f"ratio {t_warm / t_ref:.3f}); amplitudes within {err:.3e} of "
+          f"max|amp|, energy {e_ref:.7f} ({rel:.2e} relative)")
+    ndev = torch.cuda.device_count()
+    if ndev >= 2 and not ndev & (ndev - 1):
+        cards = [torch.device("cuda", i) for i in range(ndev)]
+        for name, real in (("default_mesh()", default_mesh()),
+                           (f"{k} shards on {ndev} cards",
+                            make_mesh(k, devices=cards * (k // ndev)))):
+            c2 = rq.Circuit(n, rq.Simulator(seed=16, device=dev), mesh=real)
+            request(c2, [], [])  # schedules and plans
+            t_real = request(c2, [], [])
+            rounds_r = []
+            request(c2, rounds_r, [], host=True)
+            e2 = c2.expval(hamiltonian)
+            check(abs(e2 - e_ref) / abs(e_ref) <= ENERGY_RTOL,
+                  f"{name} energy {e2}")
+            ms_r = [a.elapsed_time(b) for a, b, _ in rounds_r]
+            moved_r = sum(b for _, _, b in rounds_r)
+            print(f"{name}: warm flush {t_real * 1e3:.2f} ms, energy "
+                  f"{e2:.7f} ({abs(e2 - e_ref) / abs(e_ref):.2e} relative); "
+                  f"{len(rounds_r)} rounds moving {moved_r / gib:.3f} GiB "
+                  f"between shards in {sum(ms_r):.2f} ms (each timed "
+                  f"between synchronizations of every card, "
+                  f"{moved_r / max(sum(ms_r), 1e-9) / 1e6:.1f} GB/s); per "
+                  f"round ms {[round(v, 3) for v in ms_r]}")
+            del c2
+            torch.cuda.empty_cache()
+
+    # ---- 16.2 df64 ring, n = 26 over 4 shards -----------------------------
+    nd, kd = SHARD_DF64_N, SMALL_SHARDS
+    mesh4 = make_mesh(kd, devices=[dev] * kd)
+    theta_d = rng.normal(size=nd * ANSATZ_LAYERS)
+    ham_d = tfim(rq, nd)
+    rq.set_precision("df64")
+    try:
+        _, df_passes, df_planned, _ = sharded_plan(
+            interpreter, PallasBlock, fused_df64,
+            rq.trace_kernel(ring_kernel, nd, *theta_d), nd,
+            sharded.num_global_qubits(mesh4))
+        # the path's own df64 launches on a shard's 2^24 planes, held to
+        # the plain version in a run of their own (it plans the flush)
+        chk = rq.Circuit(nd, rq.Simulator(device=dev), mesh=mesh4)
+        ring_kernel(chk, *theta_d)
+        df_errs = []
+        with held_to_plain(fused_df64, "apply_fused_layer_df64",
+                           fused_df64.apply_fused_layer_df64_reference,
+                           df64.state_to_pair_f64, df_errs) as calls:
+            chk.flush()
+        del chk
+        df_err = held_report("sharded df64 pass, kernel vs plain", df_errs,
+                             calls, SHARD_DF64_PASS_RTOL)
+        cd = rq.Circuit(nd, rq.Simulator(device=dev), mesh=mesh4)
+        ring_kernel(cd, *theta_d)
+        zero_counts(fused_sv, fused_df64, rotate, region_dot)
+        _, t_df = wall(cd.flush)
+        df_launches = fused_df64.LAUNCHES
+        check(df_launches == kd * df_planned and fused_sv.LAUNCHES == 0,
+              f"sharded df64: {df_launches} launches for {df_planned} "
+              f"planned a shard on {kd} shards")
+        check(cd.state.parts[0][1] is None, "the df64 carry stays real")
+        e_s = cd.expval(ham_d)
+        del cd
+        cu = rq.Circuit(nd, rq.Simulator(device=dev))
+        ring_kernel(cu, *theta_d)
+        _, t_du = wall(cu.flush)
+        e_u = cu.expval(ham_d)
+        del cu
+    finally:
+        rq.set_precision("single")
+    torch.cuda.empty_cache()
+    rel_d = abs(e_s - e_u) / abs(e_u)
+    check(rel_d <= DF64_ENERGY_RTOL, f"sharded df64 energy {rel_d}")
+    print(f"sharded df64 n={nd} over {kd} shards: {df_passes} passes a "
+          f"shard, {df_launches} launches (one a shard a pass), warm flush "
+          f"{t_df * 1e3:.2f} ms (unsharded {t_du * 1e3:.2f}); energy "
+          f"{e_s:.15f} vs {e_u:.15f} ({rel_d:.2e} relative)")
+
+    # ---- 16.3 exact double QFT, n = 20 over 4 shards ------------------------
+    nq = SHARD_DOUBLE_N
+    rq.set_precision("double")
+    try:
+        psis = []
+        for mesh_arg in (mesh4, None):
+            c = rq.Circuit(nq, rq.Simulator(device=dev), mesh=mesh_arg)
+            for q in range(0, nq, 3):
+                c.x(q)
+            for op in qft_ir(nq).ops:
+                c._enqueue(op.name, op.targets, op.controls, op.params,
+                           op.matrix, op.is_adjoint)
+            psi, t = wall(c.get_statevector)
+            psis.append((psi, t))
+    finally:
+        rq.set_precision("single")
+    err_q = float(np.abs(psis[0][0] - psis[1][0]).max())
+    check(err_q <= SHARD_DOUBLE_TOL, f"sharded double QFT {err_q}")
+    print(f"sharded double QFT n={nq} over {kd} shards: "
+          f"{psis[0][1] * 1e3:.2f} ms (unsharded {psis[1][1] * 1e3:.2f}), "
+          f"within {err_q:.2e} of the unsharded exact engine")
+
+    # ---- 16.4 density, n = 14 over 4 shards: f32 and df64 -----------------
+    nr = DENSITY_N
+    dens, dens_err = {}, {}
+    held = {"single": (fused_sv, "apply_fused_layer",
+                       fused_sv.apply_fused_layer_reference, tuple,
+                       SHARD_PASS_RTOL),
+            "df64": (fused_df64, "apply_fused_layer_df64",
+                     fused_df64.apply_fused_layer_df64_reference,
+                     df64.state_to_pair_f64, SHARD_DF64_PASS_RTOL)}
+    for mode, tol in (("single", SHARD_TOL), ("df64", SHARD_DOUBLE_TOL)):
+        rq.set_precision(mode)
+        try:
+            # the path's own launches on the shard rows, held to the plain
+            # version in a run of their own
+            module, name, plain, promote, rtol = held[mode]
+            chk = rq.DensityCircuit(nr, rq.Simulator(device=dev), mesh=mesh4)
+            density_bench(chk, DENSITY_ANGLES[0])
+            errs = []
+            with held_to_plain(module, name, plain, promote, errs) as calls:
+                chk.flush()
+            del chk
+            dens_err[mode] = held_report(
+                f"sharded density {mode} pass, kernel vs plain", errs, calls,
+                rtol)
+            zero_counts(fused_sv, fused_df64, rotate, region_dot)
+            ds = rq.DensityCircuit(nr, rq.Simulator(device=dev), mesh=mesh4)
+            density_bench(ds, DENSITY_ANGLES[0])
+            _, t_ds = wall(ds.flush)
+            launches_s = (fused_sv.LAUNCHES, fused_sv.BATCHED_LAUNCHES,
+                          fused_df64.LAUNCHES)
+            rho = sharded.gather(ds.state)
+            rho = rho if len(rho) == 2 else (rho[0].real, rho[0].imag)
+            del ds
+            du = rq.DensityCircuit(nr, rq.Simulator(device=dev))
+            density_bench(du, DENSITY_ANGLES[0])
+            _, t_du = wall(du.flush)
+            ure, uim = du.state
+            top = float(ure.abs().max())
+            d_err = max(max_err(rho[0], ure),
+                        0.0 if rho[1] is None else float(
+                            (rho[1] - (0 if uim is None else uim)).abs()
+                            .max())) / top
+            del du, ure, uim, rho
+        finally:
+            rq.set_precision("single")
+        torch.cuda.empty_cache()
+        check(d_err <= tol, f"sharded density {mode}: {d_err}")
+        if mode == "single":
+            check(launches_s[0] == launches_s[1] > 0,
+                  f"sharded f32 density launches {launches_s}")
+        else:
+            check(launches_s[2] > 0 and launches_s[0] == 0,
+                  f"sharded df64 density launches {launches_s}")
+        dens[mode] = launches_s
+        print(f"sharded density {mode} n={nr} over {kd} shards: flush "
+              f"{t_ds * 1e3:.2f} ms (unsharded {t_du * 1e3:.2f}), launches "
+              f"f32 {launches_s[0]} (batched {launches_s[1]}), df64 "
+              f"{launches_s[2]}; rho within {d_err:.2e} of max|rho|")
+
+    # ---- 16.5 tensor network: the ring over a 4-shard mesh -----------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    d = TN_DIM
+    mats = [torch.randn((d, d), generator=gen, dtype=torch.complex64,
+                        device=dev) / d for _ in range(3)]
+
+    def ring(mesh_arg):
+        tn = TensorNetwork(device=dev)
+        for t, labels in zip(mats, ("ab", "bc", "ca")):
+            tn.add_tensor(Tensor(t, tuple(labels)))
+        if mesh_arg is None:
+            return tn.contract({"num_slices": TN_SLICES}).data, tn
+        return tn.contract({"num_slices": TN_SLICES}, mesh=mesh_arg,
+                           axis_name="sv").data, tn
+
+    (v_mesh, tn_mesh), _ = wall(lambda: ring(mesh4))
+    (v_flat, _), _ = wall(lambda: ring(None))
+    # warm, in turns: sharded, unsharded, unsharded, sharded
+    turns = [wall(lambda: ring(m))[1] for m in (mesh4, None, None, mesh4)]
+    t_mesh, t_flat = min(turns[0], turns[3]), min(turns[1], turns[2])
+    rel_tn = abs(complex(v_mesh) - complex(v_flat)) / abs(complex(v_flat))
+    check(tn_mesh.last_num_slices >= kd and rel_tn <= TN_RING_TOL,
+          f"mesh ring: {tn_mesh.last_num_slices} slices, {rel_tn}")
+    print(f"ring d={d} over a {kd}-shard mesh: {tn_mesh.last_num_slices} "
+          f"slices, {t_mesh * 1e3:.2f} ms (unsharded {t_flat * 1e3:.2f}), "
+          f"within {rel_tn:.2e} relative")
+    del mats, tn_mesh
+
+    # ---- 16.6 the pinned exchange budget at n = 30 -------------------------
+    def canonical(c):
+        c.h(n - 1)
+        c.cx(n - 1, 0)
+        c.ry(0.3, n - 2)
+
+    def diagonals(c):
+        c.cz(0, n - 1)
+        c.rz(0.4, n - 1)
+
+    def one_layer(c):
+        for q in range(n):
+            c.ry(0.1 * (q + 1), q)
+        for q in range(n):
+            c.cx(q, (q + 1) % n)
+
+    budget = []
+    for build, want in ((canonical, 1), (diagonals, 0), (one_layer, 2)):
+        c = rq.Circuit(n, rq.Simulator(device=dev), mesh=mesh)
+        c.state  # the fill is no collective
+        build(c)
+        sharded.reset_collectives()
+        c.flush()
+        got_counts = sharded.count_collectives()
+        check(got_counts["all-to-all"] == want
+              and sum(got_counts.values()) == want,
+              f"exchange budget {build.__name__}: {got_counts}")
+        budget.append(got_counts["all-to-all"])
+        del c
+        torch.cuda.empty_cache()
+    print(f"exchange budget n={n} on {k} shards: canonical, diagonals, one "
+          f"ring layer -> {budget} all-to-all rounds (CPU test: [1, 0, 2])")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"fused_layer": launches, "fused_layer_init": fills,
+            "fused_layer_df64": df_launches,
+            "errors": {"fused_layer": max(pass_err, dens_err["single"]),
+                       "fused_layer_init": fill_err,
+                       "fused_layer_df64": max(df_err, dens_err["df64"])}}
 
 
 if __name__ == "__main__":

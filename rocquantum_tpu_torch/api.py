@@ -2,18 +2,17 @@
 PauliOperator / kernel / build / get_expval / adjoint / compile_program /
 grad / adjoint_grad.
 
-Counterpart of ``rocquantum_tpu/api.py`` for a circuit on one device,
-unsharded. ``Circuit`` queues gates and ``flush()`` replays the queue
-through the planned fused-kernel passes (compiler/interpreter.py),
-carrying the state as a float pair ``(re, im)`` and as ``(re, None)`` while
-the circuit stays real. The precision at the state's creation fixes its
-planes: float32 in single precision, float64 in double. A float64 state
-flushes through the double-float engine (df64 kernel) when
-``config.df64_enabled()``, else through the exact per-op engine, which
-returns the full pair. Mid-circuit ``measure`` reduces on the device,
-draws on the host from the simulator's numpy generator (the same draws as
-the JAX package for the same seed) and collapses on the device; ``sample``
-draws on the device from a seeded ``torch.Generator``.
+Counterpart of ``rocquantum_tpu/api.py``. ``Circuit`` queues gates and
+``flush()`` replays the queue through the planned fused-kernel passes
+(compiler/interpreter.py), carrying the state as a float pair ``(re, im)``
+and as ``(re, None)`` while the circuit stays real. The precision at the
+state's creation fixes its planes: float32 in single precision, float64 in
+double. A float64 state flushes through the double-float engine (df64
+kernel) when ``config.df64_enabled()``, else through the exact per-op
+engine, which returns the full pair. Mid-circuit ``measure`` reduces on
+the device, draws on the host from the simulator's numpy generator (the
+same draws as the JAX package for the same seed) and collapses on the
+device; ``sample`` draws on the device from a seeded ``torch.Generator``.
 
 ``Circuit(n, sim, batch_size=b)`` runs b states side by side (the
 reference's ``batchSize``, hipStateVec.h:61), as the JAX package does: in
@@ -22,6 +21,13 @@ single precision one complex64 ``(b, 2^n)`` tensor through
 a pass for the whole batch); in double precision, ``"df64"`` included, the
 exact float64 pair of ``(b, 2^n)`` planes. Measurements draw per element
 in element order and readouts return one row or value per element.
+
+``Circuit(n, sim, mesh=mesh)`` (or ``multi_gpu=True``) shards the state
+over a ``parallel.Mesh`` (parallel/sharded.py): flushes are scheduled so
+every gate touches local bits, each device runs the plan over the rows of
+its shards, and readouts reduce per-shard partials. A batch may be
+sharded too, over a ``make_mesh_2d(dp, sv)``. ``compile_program(mesh=)``
+replays a sharded flush.
 
 ``@kernel`` functions are traced into a CircuitIR by a recorder;
 ``compile_program`` captures a flush's plan once and replays it;
@@ -40,13 +46,17 @@ import torch
 from . import config
 from .compiler.interpreter import (compile_df64_fused_ir, compile_ir,
                                    compile_pair32_ir, init_real, init_real64,
-                                   parametrize, run_ops_f64)
+                                   parametrize, run_ops_f64,
+                                   run_ops_f64_sharded)
 from .compiler.ir import CircuitIR, GateOp, ParamRef
 from .compiler.passes import adjoint_ir
 from .compiler.qasm import to_qasm3
-from .compiler.sharded_schedule import elide_swaps, unpermute_ops
+from .compiler.sharded_schedule import (elide_swaps, schedule_for_sharding,
+                                        unpermute_ops)
 from .ops import pairsim
 from .ops import statevec as sv
+from .parallel import sharded
+from .parallel.mesh import SV_AXIS, Mesh, default_mesh
 from .utils.cache import BoundedCache
 
 
@@ -82,6 +92,53 @@ def _zero_batch(n: int, b: int, device, precision: str):
     return pairsim.init_pair_batched(n, b, torch.float64, device)
 
 
+def check_mesh(mesh):
+    """Raise unless ``mesh`` is a ``parallel.Mesh`` with an ``sv`` axis."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a rocquantum_tpu_torch.parallel.Mesh,"
+                        f" got {type(mesh).__name__}")
+    if SV_AXIS not in mesh.axis_names:
+        raise ValueError(f"sharded circuits need an '{SV_AXIS}' mesh axis; "
+                         f"got {mesh.axis_names}")
+
+
+def _zero_sharded(n: int, sharding, precision: str, df64: bool,
+                  batch_size: int):
+    """|0...0> born sharded, as a sharded Circuit carries it: complex64 in
+    single precision (the JAX package's sharded carry), a real float64
+    plane for the double-float engine, else the full float64 pair; a batch
+    of b elements in each cell's rows."""
+    b = None if batch_size == 1 else batch_size
+    if precision == "single":
+        return sharded.init_state(n, sharding, torch.complex64, "complex", b)
+    planes = "real" if df64 and b is None else "pair"
+    return sharded.init_state(n, sharding, torch.float64, planes, b)
+
+
+# scheduled flushes by (queue structure, qubits, global bits, layout)
+_SCHEDULE_CACHE = BoundedCache()
+
+
+def _schedule(ops, n: int, n_global: int, layout):
+    key = (tuple(op.structural_key() for op in ops), n, n_global,
+           tuple(layout))
+    hit = _SCHEDULE_CACHE.get(key)
+    if hit is None:
+        hit = schedule_for_sharding(ops, n, n_global, layout)
+        _SCHEDULE_CACHE[key] = hit
+    return hit[0], list(hit[1])
+
+
+def _restore_sharded(state, layout):
+    """A ShardedState in physical layout ``layout`` brought back to the
+    identity layout in one relabel: bit q takes old bit ``layout[q]``, the
+    permutation ``unpermute_ops(layout, merge=True)`` spells out (the JAX
+    package cuts it into chunks of at most 8 bits for its compiler; one
+    all-to-all round carries any permutation here)."""
+    return sharded.permute_bits(state, tuple(range(len(layout))),
+                                tuple(layout))
+
+
 class Simulator:
     """Simulation context: RNG seeding and device placement.
 
@@ -96,6 +153,28 @@ class Simulator:
             else default_device()
         self._host_rng = np.random.default_rng(seed)
         self._generators: Dict[torch.device, torch.Generator] = {}
+        self._keys = 0
+        self._handle_wrapper = None
+
+    @property
+    def handle(self):
+        """The reference's backend handle (reference api.py:19-22; user
+        code calls ``sim.handle.get_num_gpus()``), made at first use."""
+        if self._handle_wrapper is None:
+            from .compat._rocq_hip_backend import RocsvHandle
+            self._handle_wrapper = RocsvHandle.__new__(RocsvHandle)
+            self._handle_wrapper.simulator = self
+        return self._handle_wrapper
+
+    def next_key(self) -> torch.Generator:
+        """A new generator on the simulator's device, seeded from (seed,
+        number of keys drawn so far): each call a fresh, reproducible
+        stream (the JAX package splits its PRNG key)."""
+        entropy = np.random.SeedSequence([self.seed, self._keys])
+        self._keys += 1
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(entropy.generate_state(1, np.uint64)[0] >> 1))
+        return gen
 
     def generator(self, device) -> torch.Generator:
         device = torch.device(device)
@@ -272,11 +351,23 @@ class _GateMethods:
 class Circuit(_GateMethods):
     """A gate queue bound to device state; ``flush`` runs the queue through
     the fused-kernel plan (reference api.py:37-288). ``batch_size`` > 1
-    holds that many states, each getting every gate."""
+    holds that many states, each getting every gate.
+
+    ``mesh`` (a ``parallel.Mesh`` with an ``sv`` axis; ``multi_gpu=True``
+    means ``parallel.default_mesh()``) shards the state: the top log2(P)
+    index bits select the shard (parallel/sharded.py). A flush schedules
+    the queue so every gate touches local bits (compiler/sharded_schedule
+    .py: relabels as all-to-all rounds, the layout kept across flushes in
+    ``_layout``) and runs it shard by shard: in single precision a
+    complex64 state through ``compile_ir(sharding=...)``, in double
+    precision a float64 pair through the df64 engine or the exact one.
+    Readouts reduce per-shard partials; only a full read-back gathers,
+    after one merged relabel back to the identity layout. ``device`` (last,
+    keyword in practice) places an unsharded state."""
 
     def __init__(self, num_qubits: int, simulator: Simulator,
-                 fuse: bool = True, max_fuse: int = 2, device=None,
-                 batch_size: int = 1):
+                 multi_gpu: bool = False, batch_size: int = 1, mesh=None,
+                 fuse: bool = True, max_fuse: int = 2, device=None):
         if not isinstance(simulator, Simulator):
             raise TypeError("A valid Simulator instance is required.")
         if num_qubits < 0:
@@ -286,6 +377,12 @@ class Circuit(_GateMethods):
         self.num_qubits = num_qubits
         self.simulator = simulator
         self.batch_size = batch_size
+        self.is_multi_gpu = multi_gpu  # compat alias: means "sharded"
+        if multi_gpu and mesh is None:
+            mesh = default_mesh()
+        if mesh is not None:
+            check_mesh(mesh)
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None \
             else simulator.device
         self._fuse = fuse
@@ -293,10 +390,28 @@ class Circuit(_GateMethods):
         self._gate_queue: List[GateOp] = []
         self._is_dirty = False
         self._state = None  # (re, im_or_None), made at first use
-        # logical qubit -> physical index bit (SWAP gates relabel it)
+        # logical qubit -> physical index bit (SWAP gates relabel it; on a
+        # sharded circuit the scheduler's relabels too)
         self._layout: List[int] = list(range(num_qubits))
 
     # -- state management ---------------------------------------------------
+
+    def _sharding(self):
+        if self.mesh is None:
+            return None
+        return sharded.state_sharding(self.mesh, batch=self.batch_size > 1)
+
+    def _zero(self):
+        """|0...0> in the precision set now (see :attr:`state`)."""
+        if self.mesh is not None:
+            return _zero_sharded(self.num_qubits, self._sharding(),
+                                 config.get_precision(),
+                                 config.df64_enabled(), self.batch_size)
+        if self.batch_size > 1:
+            return _zero_batch(self.num_qubits, self.batch_size, self.device,
+                               config.get_precision())
+        return _zero_state(self.num_qubits, self.device,
+                           config.get_precision(), config.df64_enabled())
 
     @property
     def state(self):
@@ -305,22 +420,22 @@ class Circuit(_GateMethods):
         real float32 plane, a real float64 plane for the double-float
         engine, else the full float64 pair the exact engine carries. A
         batch is a complex64 ``(b, 2^n)`` tensor in single precision, else
-        a float64 pair of ``(b, 2^n)`` planes."""
+        a float64 pair of ``(b, 2^n)`` planes. A sharded circuit holds a
+        ``parallel.ShardedState`` (its planes in the physical layout
+        ``_layout``)."""
         if self._state is None:
-            if self.batch_size > 1:
-                self._state = _zero_batch(self.num_qubits, self.batch_size,
-                                          self.device,
-                                          config.get_precision())
-            else:
-                self._state = _zero_state(self.num_qubits, self.device,
-                                          config.get_precision(),
-                                          config.df64_enabled())
+            self._state = self._zero()
         return self._state
+
+    def _is_sharded(self) -> bool:
+        return isinstance(self.state, sharded.ShardedState)
 
     def _is_complex_batch(self) -> bool:
         return not isinstance(self.state, tuple)
 
     def _is_f64(self) -> bool:
+        if self._is_sharded():
+            return self.state.parts[0][0].dtype == torch.float64
         return self.state[0].dtype == torch.float64
 
     def reset(self):
@@ -336,8 +451,12 @@ class Circuit(_GateMethods):
 
     def _restore_identity_layout(self):
         """Apply the index-bit swaps returning the state to logical order
-        (before a full-state readback)."""
+        (before a full-state readback); sharded, one merged relabel."""
         if self._layout == list(range(self.num_qubits)):
+            return
+        if self._is_sharded():
+            self._state = _restore_sharded(self.state, self._layout)
+            self._layout = list(range(self.num_qubits))
             return
         ops = unpermute_ops(self._layout)
         if self._is_f64():
@@ -367,6 +486,8 @@ class Circuit(_GateMethods):
         SWAPs as gates, as the JAX package's batched flush does, and runs
         the batched flat engine or the exact one."""
         ops, values = parametrize(self._gate_queue)
+        if self.mesh is not None:
+            return self._sharded_flush_plan(ops, values)
         if self.batch_size > 1:
             if self._is_complex_batch():
                 fn = compile_ir(CircuitIR(self.num_qubits, ops),
@@ -390,6 +511,28 @@ class Circuit(_GateMethods):
         return (lambda state, p: run_ops_f64(*state, ops, p), values,
                 layout)
 
+    def _sharded_flush_plan(self, ops, values):
+        """:meth:`_flush_plan` on a mesh: the queue scheduled for locality
+        (schedule_for_sharding from the current layout, cached by
+        structure), then ``compile_ir(sharding=...)`` on a complex64
+        state, the df64 engine on an unbatched float64 one, else the exact
+        engine."""
+        sharding = self._sharding()
+        ops, layout = _schedule(ops, self.num_qubits, sharding.n_global,
+                                self._layout)
+        ir = CircuitIR(self.num_qubits, ops)
+        if not self._is_f64():
+            fn = compile_ir(ir, fuse=self._fuse, max_fuse=self._max_fuse,
+                            batched=self.batch_size > 1, sharding=sharding)
+            return fn, np.asarray(values, np.float32), layout
+        values = np.asarray(values, np.float64)
+        if config.df64_enabled() and self.batch_size == 1:
+            return (compile_df64_fused_ir(ir, fuse=self._fuse,
+                                          max_fuse=self._max_fuse,
+                                          sharding=sharding), values, layout)
+        return (lambda state, p: run_ops_f64_sharded(state, ops, p), values,
+                layout)
+
     def flush(self):
         """Run the queued gates (reference api.py:74-89) through
         :meth:`_flush_plan`."""
@@ -411,6 +554,8 @@ class Circuit(_GateMethods):
         self.flush()
         self._validate_qubit_index(qubit_to_measure)
         phys = self._phys(qubit_to_measure)
+        if self._is_sharded():
+            return self._measure_sharded(phys)
         if self.batch_size > 1:
             return self._measure_batch(phys)
         re, im = self.state
@@ -418,6 +563,21 @@ class Circuit(_GateMethods):
         outcome = 1 if self.simulator.host_random() < p1 else 0
         self._state = pairsim.collapse_pair(re, im, phys, outcome)
         return outcome, (p1 if outcome == 1 else 1.0 - p1)
+
+    def _measure_sharded(self, phys: int):
+        """measure on a sharded state: P(1) from per-shard partials, the
+        draws on the host, the collapse shard by shard."""
+        p1 = sharded.prob_one(self.state, phys).cpu().numpy()
+        if self.batch_size == 1:
+            p1 = float(p1)
+            outcome = 1 if self.simulator.host_random() < p1 else 0
+            sharded.collapse(self.state, phys, outcome)
+            return outcome, (p1 if outcome == 1 else 1.0 - p1)
+        draws = np.asarray([self.simulator.host_random()
+                            for _ in range(self.batch_size)])
+        outcomes = (draws < p1).astype(np.int32)
+        sharded.collapse(self.state, phys, outcomes)
+        return outcomes, np.where(outcomes == 1, p1, 1.0 - p1)
 
     def _measure_batch(self, phys: int):
         state = self.state
@@ -450,6 +610,10 @@ class Circuit(_GateMethods):
         if num_shots <= 0:
             raise ValueError("Number of shots must be positive.")
         qubits = tuple(self._phys(q) for q in measured_qubits)
+        if self._is_sharded():
+            marg = sharded.marginal_probs(self.state, qubits)
+            gen = self.simulator.generator(marg.device)
+            return pairsim.sample_marginal(marg, num_shots, gen).cpu().numpy()
         gen = self.simulator.generator(self.device)
         if self._is_complex_batch():
             out = sv.sample(self.state, qubits, num_shots, gen)
@@ -472,9 +636,13 @@ class Circuit(_GateMethods):
         ``(b, 2^n)`` for a batch."""
         self.flush()
         self._restore_identity_layout()
-        if self._is_complex_batch():
-            return self.state.cpu().numpy().astype(np.complex128)
-        re, im = self.state
+        state = self.state
+        if self._is_sharded():
+            state = sharded.gather(state)
+            state = state[0] if len(state) == 1 else state
+        if not isinstance(state, tuple):
+            return state.cpu().numpy().astype(np.complex128)
+        re, im = state
         out = re.cpu().numpy().astype(np.complex128)
         if im is not None:
             out += 1j * im.cpu().numpy()
@@ -487,7 +655,10 @@ class Circuit(_GateMethods):
         if start < 0 or size <= 0 or start + size > (1 << self.num_qubits):
             raise ValueError("slice out of range")
         self._restore_identity_layout()
-        if self._is_complex_batch():
+        if self._is_sharded():
+            part = sharded.gather_slice(self.state, start, size)
+            re, im = sharded._as_pair(part)
+        elif self._is_complex_batch():
             re, im = sv.state_slice_parts(self.state, start, size)
         else:
             re, im = pairsim.slice_pair(*self.state, start, size)
@@ -502,7 +673,9 @@ class Circuit(_GateMethods):
         qubits = list(qubits) if qubits is not None \
             else list(range(self.num_qubits))
         phys = tuple(self._phys(q) for q in qubits)
-        if self._is_complex_batch():
+        if self._is_sharded():
+            probs = sharded.marginal_probs(self.state, phys)
+        elif self._is_complex_batch():
             probs = sv.marginal_probs(self.state, phys)
         else:
             probs = pairsim.marginal_probs_pair(*self.state, phys)
@@ -519,9 +692,12 @@ class Circuit(_GateMethods):
                  for ops, _ in pauli_operator.terms]
         coeffs = [float(c) for _, c in pauli_operator.terms]
         state = self.state
-        if self._is_complex_batch():
-            state = (state.real, state.imag)
-        value = pairsim.expval_terms_pair(*state, terms, coeffs)
+        if self._is_sharded():
+            value = sharded.expval_terms(state, terms, coeffs)
+        else:
+            if self._is_complex_batch():
+                state = (state.real, state.imag)
+            value = pairsim.expval_terms_pair(*state, terms, coeffs)
         if self.batch_size > 1:
             return value.cpu().numpy()
         return float(value)
@@ -662,25 +838,27 @@ def compile_program(ir: CircuitIR, simulator: Optional[Simulator] = None,
                     mesh=None, fuse: bool = True,
                     max_fuse: int = 2) -> CompiledProgram:
     """Compile ``ir`` (concrete parameters only) into a
-    :class:`CompiledProgram` on the simulator's device. The precision in
-    force now fixes the engine and the start state of every run."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "compile_program(mesh=...) needs the sharded engine, which this "
-            "package does not have yet")
+    :class:`CompiledProgram` on the simulator's device, or sharded over
+    ``mesh``. The precision in force now fixes the engine and the start
+    state of every run."""
     if any(isinstance(p, ParamRef) for op in ir.ops for p in op.params):
         raise ValueError(
             "compile_program needs fully-concrete parameters (found "
             "ParamRef slots); use QuantumProgram.update_params for "
             "recorder-managed parameter vectors")
     sim = simulator if simulator is not None else Simulator()
-    c = Circuit(ir.num_qubits, sim, fuse=fuse, max_fuse=max_fuse)
+    c = Circuit(ir.num_qubits, sim, mesh=mesh, fuse=fuse, max_fuse=max_fuse)
     for op in ir.ops:
         c._enqueue(op.name, op.targets, op.controls, op.params, op.matrix,
                    op.is_adjoint)
-    init_fn = functools.partial(_zero_state, ir.num_qubits, c.device,
-                                config.get_precision(),
-                                config.df64_enabled())
+    if mesh is not None:
+        init_fn = functools.partial(_zero_sharded, ir.num_qubits,
+                                    c._sharding(), config.get_precision(),
+                                    config.df64_enabled(), 1)
+    else:
+        init_fn = functools.partial(_zero_state, ir.num_qubits, c.device,
+                                    config.get_precision(),
+                                    config.df64_enabled())
     run, values, layout = c._flush_plan()
     return CompiledProgram(c, (run, tuple(layout)), init_fn, values,
                            observable)

@@ -30,6 +30,15 @@ with PallasBlocks through the df64 kernel (ops/fused_df64.py) and every
 other item op by op in df64 arithmetic (ops/df64.py), and promotes back to
 float64 at exit; :func:`run_ops_f64` (``set_precision("double")``)
 applies every op exactly on complex128 in plain torch.
+
+A sharded state (parallel/sharded.py: one ``(k, 2^L)`` tensor of shard
+rows a device) runs through :func:`run_sharded`: the plan is made on the
+L local bits, a run of local items goes to each device once (every shard
+row of it in one batched kernel launch a pass; df64 row by row), a
+diagonal touching global bits runs on each shard as its own diagonal on
+local bits, and SWAP_BITS / PERMUTE_BITS across the boundary are
+all-to-all rounds (``compile_ir(sharding=...)``,
+``compile_df64_fused_ir(sharding=...)``, :func:`run_ops_f64_sharded`).
 """
 
 from __future__ import annotations
@@ -47,11 +56,12 @@ from ..ops import fused_sv
 from ..ops import gates as _g
 from ..ops import relabel
 from ..ops import statevec as sv
+from ..parallel import sharded
 from ..utils.cache import BoundedCache
 from .ir import CircuitIR, GateOp, ParamRef
 from .passes import (DiagBlock, FusedBlock, PallasBlock, consolidate_high,
                      consolidate_low, fuse_diagonals, fuse_pallas_runs,
-                     plan_fusion)
+                     is_diagonal, plan_fusion)
 from .sharded_schedule import PERMUTE_BITS, SWAP_BITS, permutation_of
 
 # Smallest state the flush routes through the fused kernel. The JAX package
@@ -153,36 +163,42 @@ def _phase_factor(state, values, desc):
     return (state.view(dims) * f.reshape(bshape)).reshape(state.shape)
 
 
+def _diag_factor(op: GateOp, params):
+    """(qubits in descending order, the op's diagonal as a complex128
+    ``(2,) * k`` factor over them) of a diagonal op."""
+    base, controls, targets = _split_op(op)
+    if base in ("D2M", "RZZ"):
+        if base == "D2M":
+            m = np.asarray(op.matrix, np.complex128)
+            if op.is_adjoint:
+                m = np.conj(m)
+        else:
+            (theta,) = _resolve_params(op, params)
+            if op.is_adjoint:
+                theta = -theta
+            em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
+            m = np.array([[em, ep], [ep, em]])
+        # factor axes follow DESCENDING qubit order
+        return sorted(targets, reverse=True), \
+            (m if targets[0] > targets[1] else m.T)
+    d = _diag_vector(op, params)
+    qubits = list(controls) + list(targets)
+    desc = sorted(qubits, reverse=True)
+    k = len(desc)
+    # 1 everywhere except the all-controls-one slice, which carries the
+    # target diagonal
+    f = np.ones((2,) * k, np.complex128)
+    idx = tuple(1 if desc[j] in set(controls) else slice(None)
+                for j in range(k))
+    f[idx] = d
+    return desc, f
+
+
 def _apply_diag_block(state: torch.Tensor, block: DiagBlock,
                       params) -> torch.Tensor:
     """Multiply every member's phase factor into the complex state."""
     for op in block.ops:
-        base, controls, targets = _split_op(op)
-        if base in ("D2M", "RZZ"):
-            if base == "D2M":
-                m = np.asarray(op.matrix, np.complex128)
-                if op.is_adjoint:
-                    m = np.conj(m)
-            else:
-                (theta,) = _resolve_params(op, params)
-                if op.is_adjoint:
-                    theta = -theta
-                em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
-                m = np.array([[em, ep], [ep, em]])
-            # factor axes follow DESCENDING qubit order
-            d2 = m if targets[0] > targets[1] else m.T
-            state = _phase_factor(state, d2, sorted(targets, reverse=True))
-            continue
-        d = _diag_vector(op, params)
-        qubits = list(controls) + list(targets)
-        desc = sorted(qubits, reverse=True)
-        k = len(desc)
-        # 1 everywhere except the all-controls-one slice, which carries the
-        # target diagonal
-        f = np.ones((2,) * k, np.complex128)
-        idx = tuple(1 if desc[j] in set(controls) else slice(None)
-                    for j in range(k))
-        f[idx] = d
+        desc, f = _diag_factor(op, params)
         state = _phase_factor(state, f, desc)
     return state
 
@@ -647,9 +663,9 @@ def run_ops_exact(state: torch.Tensor, ops: Sequence,
     return state
 
 
-def execute(state: torch.Tensor, ops: Sequence, params=None,
-            fuse: bool = True, max_fuse: int = 2, low_width: int = 0,
-            high_width: int = 0) -> torch.Tensor:
+def execute(state, ops: Sequence, params=None, fuse: bool = True,
+            max_fuse: int = 2, low_width: int = 0, high_width: int = 0,
+            sharding=None):
     """Apply ``ops`` to a flat complex state and return the new state.
 
     A complex64 state is planned by :func:`plan_items` (with ``fuse``, runs
@@ -658,7 +674,14 @@ def execute(state: torch.Tensor, ops: Sequence, params=None,
     launch the fused kernel, on the CPU its plain version. ``low_width`` /
     ``high_width`` > 0 also merge runs on the lowest / highest qubits into
     one dense block each (a matmul). A complex128 state runs every op
-    exactly (:func:`run_ops_exact`)."""
+    exactly (:func:`run_ops_exact`). A :class:`~..parallel.sharded.
+    ShardedState` runs sharded (:func:`run_sharded_flat`; no high block).
+    ``sharding``, the JAX package's argument, is optional here, since the
+    state carries its own; given, it must be that one."""
+    sharded.check_sharding(sharding, state)
+    if isinstance(state, sharded.ShardedState):
+        return run_sharded_flat(state, ops, params, fuse, max_fuse,
+                                low_width)
     if state.dtype != torch.complex64:
         return run_ops_exact(state, ops, params)
     items = plan_items(ops, sv.num_qubits_of(state), fuse, max_fuse,
@@ -672,10 +695,13 @@ _MAX_LOW_WIDTH = 9
 _MAX_HIGH_WIDTH = 9
 
 
-def default_widths(n: int):
+def default_widths(n: int, sharded: bool = False):
     """(low_width, high_width) of :func:`compile_ir` for an n-qubit
-    circuit: 9 each, as far as n allows."""
+    circuit: 9 each, as far as n allows. A sharded circuit merges no high
+    block: the top index bits select the shard."""
     low = min(_MAX_LOW_WIDTH, n)
+    if sharded:
+        return low, 0
     return low, min(_MAX_HIGH_WIDTH, n - low)
 
 
@@ -732,7 +758,8 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
 
 def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
                low_width: Optional[int] = None,
-               high_width: Optional[int] = None, batched: bool = False):
+               high_width: Optional[int] = None, batched: bool = False,
+               sharding=None, batch_sharding=None):
     """Return ``f(state, params) -> state`` for this IR over flat complex
     states (:func:`execute`; widths default to :func:`default_widths`),
     cached by structural key plus the concrete parameter values the plan
@@ -741,12 +768,27 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     op exactly. ``batched`` takes ``(b, 2^n)`` states and runs the circuit
     on every element (the reference's ``batchSize``, hipStateVec.h:61),
     kernel passes included: one launch per pass for the whole batch. The
-    input state is not modified."""
-    dlw, dhw = default_widths(ir.num_qubits)
+    input state is not modified.
+
+    With ``sharding`` (a ``parallel.state_sharding``) ``f`` takes and
+    returns a :class:`~..parallel.sharded.ShardedState` of that sharding:
+    kernel blocks are planned on its local bits and run once per device
+    over the rows of its shards (:func:`run_sharded_flat`). The port's
+    descriptor carries the batch, so ``batch_sharding``, the JAX package's
+    name for the batched layout, is the same argument: pass either, or both
+    equal."""
+    if batch_sharding is not None:
+        if sharding is not None and sharding != batch_sharding:
+            raise ValueError(f"sharding {sharding!r} and batch_sharding "
+                             f"{batch_sharding!r} differ")
+        sharding = batch_sharding
+    sharded.check_sharding(sharding)
+    layout = sharding
+    dlw, dhw = default_widths(ir.num_qubits, sharded=layout is not None)
     low_width = dlw if low_width is None else low_width
     high_width = dhw if high_width is None else high_width
     key = _plan_key(ir, "flat", fuse, max_fuse, low_width, high_width,
-                    batched)
+                    batched, layout)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         return cached
@@ -755,6 +797,14 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     plan = []
 
     def run(state, params=None):
+        if layout is not None:
+            sharded.check_sharding(layout, state)
+            if state.batched != batched or state.num_qubits != n:
+                raise ValueError(f"a sharded {n}-qubit circuit takes a "
+                                 f"{'batched ' if batched else ''}"
+                                 f"{n}-qubit ShardedState")
+            return run_sharded_flat(state, ops, params, fuse, max_fuse,
+                                    low_width, plan)
         if sv.num_qubits_of(state) != n:
             raise ValueError(f"state has {sv.num_qubits_of(state)} qubits, "
                              f"the circuit {n}")
@@ -775,18 +825,37 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
 
 
 def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
-                          max_fuse: int = 2):
+                          max_fuse: int = 2, sharding=None):
     """Return ``run((re, im_or_None), params) -> (re, im_or_None)`` over
     float64 planes through the double-float engine: the pair is split into
     hi/lo float32 planes at entry (exact to ~2^-49 relative), runs the
     cached plan with PallasBlocks on the df64 kernel, and is promoted back
     to float64 at exit. ``im=None`` carries a real state at half the
-    traffic; the output is ``(re, None)`` only if it stayed real."""
-    key = _plan_key(ir, fuse, max_fuse, "df64")
+    traffic; the output is ``(re, None)`` only if it stayed real.
+
+    With ``sharding``, ``run(state, params)`` takes and returns a
+    :class:`~..parallel.sharded.ShardedState` of float64 pairs (gates
+    already localized by the scheduler): the plan is made on the local
+    bits and every shard runs it, one df64 kernel launch per shard a
+    pass."""
+    sharded.check_sharding(sharding)
+    key = _plan_key(ir, fuse, max_fuse, "df64", sharding)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         return cached
     n = ir.num_qubits
+    if sharding is not None:
+        n_loc = n - sharding.n_global
+        items = plan_items(list(ir.ops), n_loc, fuse, max_fuse)
+
+        def run_sharded_df64(state, params):
+            sharded.check_sharding(sharding, state)
+            state = state.map(lambda p: dfm.state_from_pair_f64(*p))
+            state = run_sharded(state, items, params, _df64_rows(n_loc))
+            return state.map(lambda p: dfm.state_to_pair_f64(p))
+
+        _PLAN_CACHE[key] = run_sharded_df64
+        return run_sharded_df64
     items = plan_items(list(ir.ops), n, fuse, max_fuse)
 
     def run(pair, params):
@@ -796,6 +865,181 @@ def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
 
     _PLAN_CACHE[key] = run
     return run
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution (parallel/sharded.py states)
+# ---------------------------------------------------------------------------
+
+def _members(item) -> list:
+    return list(item.ops) if isinstance(
+        item, (DiagBlock, FusedBlock, PallasBlock)) else [item]
+
+
+def _item_qubits(item) -> set:
+    if isinstance(item, (DiagBlock, FusedBlock, PallasBlock)):
+        return set(item.qubits)
+    return set(item.targets) | set(item.controls)
+
+
+def _complex_rows(planes, items, params):
+    """A run of local items on a complex part, every row at once: a
+    complex64 part through :func:`run_flat` (one batched kernel launch a
+    pass over the rows), a complex128 part op by op, exactly."""
+    (t,) = planes
+    if t.dtype == torch.complex64:
+        return (run_flat(t, items, params),)
+    return (run_ops_exact(t, [op for it in items for op in _members(it)],
+                          params),)
+
+
+def _df64_rows(n_loc: int, per_op: bool = False):
+    """A run of local items on a part of df64 planes ``(rh, rl, ih, il)``,
+    row by row (the df64 kernel has no batch dimension: one launch per
+    shard a pass). ``per_op`` runs raw ops as :func:`dfm.compile_df64_ir`
+    does, keeping a real carry through real gates."""
+    def run(planes, items, params):
+        def one(row):
+            if not per_op:
+                return run_items_df64(row, items, params, n_loc)
+            for op in items:
+                if row[2] is None and op.name not in (SWAP_BITS,
+                                                      PERMUTE_BITS) \
+                        and np.any(_base_matrix(op, params).imag):
+                    row = _complex_planes(row)
+                row = dfm.apply_op_df64(row, op, params)
+            return row
+
+        outs = [one(tuple(None if p is None else p[r] for p in planes))
+                for r in range(planes[0].shape[0])]
+        return tuple(None if outs[0][k] is None
+                     else torch.stack([o[k] for o in outs])
+                     for k in range(len(outs[0])))
+    return run
+
+
+def _shard_diagonal(op: GateOp, params, shard: int, n_loc: int) -> GateOp:
+    """A diagonal op on one shard: its factor with the shard's global bits
+    fixed, as a diagonal UNITARY on its local qubits (on qubit 0 when it
+    has none: a phase)."""
+    desc, f = _diag_factor(op, params)
+    f = f[tuple((shard >> (q - n_loc)) & 1 if q >= n_loc else slice(None)
+                for q in desc)]
+    local = [q for q in desc if q < n_loc]
+    if not local:
+        local, f = [0], np.full(2, f)
+    # f's axes descend, so its flat index has local[-1] as bit 0
+    return GateOp("UNITARY", tuple(reversed(local)), (), (),
+                  np.diag(np.asarray(f).reshape(-1)))
+
+
+def _apply_rows(planes, r0: int, r1: int, op: GateOp, params, run):
+    """``op`` on rows [r0, r1) of a part, in place; a real carry that the
+    op makes complex gets zero imaginary planes for the whole part
+    first."""
+    new = run(tuple(None if p is None else p[r0:r1] for p in planes), [op],
+              params)
+    planes = tuple(torch.zeros_like(planes[0]) if p is None and x is not None
+                   else p for p, x in zip(planes, new))
+    for p, x in zip(planes, new):
+        if x is not None:
+            p[r0:r1].copy_(x)
+    return planes
+
+
+def _global_op(state, op: GateOp, params, run, n_loc: int):
+    """One op that touches global bits: a relabel (sharded.permute_bits),
+    a diagonal (each shard its own diagonal, no communication), or a gate
+    no scheduler localized (its global qubits relabelled onto free local
+    bits and back: two all-to-all rounds)."""
+    if op.name == SWAP_BITS:
+        a, b = op.targets
+        return sharded.permute_bits(state, (a, b), (b, a))
+    if op.name == PERMUTE_BITS:
+        return sharded.permute_bits(state, *permutation_of(op))
+    qubits = set(op.targets) | set(op.controls)
+    if is_diagonal(op):
+        nb = state.rows_per_cell
+        parts = list(state.parts)
+        for (b, s), (i, k) in state.sharding.loc.items():
+            with sharded.on_device(state.sharding.parts[i][0]):
+                parts[i] = _apply_rows(parts[i], k * nb, (k + 1) * nb,
+                                       _shard_diagonal(op, params, s, n_loc),
+                                       params, run)
+        return state.replace(parts)
+    glob = sorted(q for q in qubits if q >= n_loc)
+    free = [p for p in range(n_loc - 1, -1, -1) if p not in qubits]
+    if len(free) < len(glob):
+        raise ValueError(f"gate support {sorted(qubits)} exceeds the local "
+                         f"region ({n_loc} qubits)")
+    swap = dict(zip(glob, free))
+    swap.update({f: g for g, f in swap.items()})
+    dsts = tuple(swap)
+    srcs = tuple(swap[d] for d in dsts)
+    state = sharded.permute_bits(state, dsts, srcs)
+    local = GateOp(op.name, tuple(swap.get(q, q) for q in op.targets),
+                   tuple(swap.get(q, q) for q in op.controls), op.params,
+                   op.matrix, op.is_adjoint)
+    state = state.map(lambda p: run(p, [local], params))
+    return sharded.permute_bits(state, dsts, srcs)
+
+
+def run_sharded(state, items: Sequence, params, run):
+    """Execute planned items (or raw ops) on a ShardedState. Runs of items
+    on local bits go to ``run(planes, items, params)`` once per part (every
+    shard of a device in one call); an item touching global bits is taken
+    op by op (:func:`_global_op`)."""
+    params = _host_params(params)
+    n_loc = state.n_local
+    pending: list = []
+
+    def drain(state):
+        if pending:
+            batch = list(pending)
+            pending.clear()
+            state = state.map(lambda p: run(p, batch, params))
+        return state
+
+    for item in items:
+        if all(q < n_loc for q in _item_qubits(item)):
+            pending.append(item)
+            continue
+        state = drain(state)
+        for op in _members(item):
+            if all(q < n_loc for q in _item_qubits(op)):
+                state = state.map(lambda p: run(p, [op], params))
+            else:
+                state = _global_op(state, op, params, run, n_loc)
+    return drain(state)
+
+
+def run_sharded_flat(state, ops: Sequence, params=None, fuse: bool = True,
+                     max_fuse: int = 2, low_width: int = 0, plan=None):
+    """:func:`execute` on a complex ShardedState: a complex64 state is
+    planned on its local bits (kernel blocks from n_loc =
+    KERNEL_MIN_QUBITS on, the low block capped at n_loc) and run by
+    :func:`run_sharded`; a complex128 one runs op by op. ``plan`` (a list)
+    caches the plan across calls."""
+    if state.parts[0][0].dtype != torch.complex64:
+        return run_sharded(state, ops, params, _complex_rows)
+    n_loc = state.n_local
+    if plan is None or not plan:
+        items = plan_items(ops, n_loc, fuse, max_fuse, kernel=fuse,
+                           low_width=min(low_width, n_loc))
+        if plan is not None:
+            plan.append(items)
+    else:
+        items = plan[0]
+    return run_sharded(state, items, params, _complex_rows)
+
+
+def run_ops_f64_sharded(state, ops: Sequence, params=None):
+    """:func:`run_ops_f64` on a ShardedState of float64 pairs: every op
+    exactly on complex128, returned as full pairs."""
+    state = state.map(lambda p: (torch.complex(
+        p[0], p[1] if p[1] is not None else torch.zeros_like(p[0])),))
+    state = run_sharded(state, ops, params, _complex_rows)
+    return state.map(lambda p: sv.state_to_parts(p[0]))
 
 
 def clear_cache():

@@ -34,12 +34,16 @@ import numpy as np
 import torch
 
 from . import config
-from .api import PauliOperator, Simulator, _GateMethods, _zero_state
+from .api import (PauliOperator, Simulator, _GateMethods,
+                  _restore_sharded, _schedule, _zero_sharded, _zero_state,
+                  check_mesh)
 from .compiler.interpreter import (_split_op, compile_df64_fused_ir,
-                                   compile_pair32_ir)
+                                   compile_ir, compile_pair32_ir,
+                                   parametrize, run_ops_f64_sharded)
 from .compiler.ir import CircuitIR, GateOp, ParamRef
 from .ops import gates as _g
-from .ops import pairdm
+from .ops import pairdm, pairsim
+from .parallel import sharded
 from .ops.density import (CHANNELS, channel_kraus, kraus_superoperator,
                           superop_kernel_ops)
 from .utils.cache import BoundedCache
@@ -224,27 +228,48 @@ def _flush_exact(queue, rho, n: int):
 class DensityCircuit(_GateMethods):
     """Gate and channel queue over a density matrix on ``device`` (default:
     the simulator's); ``flush`` runs the queue through one cached plan per
-    queue structure (reference DensityCircuit, density_circuit.py:152)."""
+    queue structure (reference DensityCircuit, density_circuit.py:152).
+
+    With ``mesh`` (a ``parallel.Mesh`` with an ``sv`` axis) rho's 2n-bit
+    view is sharded over it, the top index bits (high row qubits)
+    selecting the shard: a flush lowers the queue to its 2n-view ops,
+    schedules them for locality (``schedule_for_sharding(ops, 2n, M,
+    layout)``, the layout kept across flushes; a non-factoring channel's
+    dense superoperator is an op like any gate, a factored phase flip a
+    diagonal that moves nothing) and runs them shard by shard: complex64
+    rho through ``compile_ir(sharding=...)`` in single precision, the df64
+    engine or the exact one in double. Readouts restore the identity
+    layout (one merged relabel) and read per-shard partials."""
 
     def __init__(self, num_qubits: int, simulator: Simulator,
-                 noise_model=None, device=None, mesh=None):
+                 noise_model=None, mesh=None, device=None):
         if not isinstance(simulator, Simulator):
             raise TypeError("A valid Simulator instance is required.")
         if num_qubits < 0:
             raise ValueError("Number of qubits must be non-negative.")
-        if mesh is not None:
-            raise NotImplementedError(
-                "DensityCircuit(mesh=...) needs the sharded engine, which "
-                "this package does not have yet")
         self.num_qubits = num_qubits
         self.simulator = simulator
         self.noise_model = noise_model
+        self.batch_size = 1
+        self.mesh = mesh
+        self._layout2n: List[int] = list(range(2 * num_qubits))
+        if mesh is not None:
+            check_mesh(mesh)
+            n_global = sharded.num_global_qubits(mesh)
+            if n_global >= 2 * num_qubits:
+                raise ValueError(
+                    f"mesh has {n_global} device-selecting bits but rho has "
+                    f"only {2 * num_qubits} index bits")
         self.device = torch.device(device) if device is not None \
             else simulator.device
         self._queue: List[tuple] = []
         self._rho = None  # (re, im_or_None), made at first use
         # the 2n-view IR of the last fused flush (None before one)
         self.last_ir: Optional[CircuitIR] = None
+
+    def _sharding(self):
+        return None if self.mesh is None else \
+            sharded.state_sharding(self.mesh)
 
     # -- queueing -------------------------------------------------------------
 
@@ -287,6 +312,10 @@ class DensityCircuit(_GateMethods):
         """|0...0><0...0| in the precision set now: a real float32 plane
         (the fill kernel on CUDA), a real float64 plane for the df64
         engine, else the full float64 pair of the exact engine."""
+        if self.mesh is not None:
+            return _zero_sharded(2 * self.num_qubits, self._sharding(),
+                                 config.get_precision(),
+                                 config.df64_enabled(), 1)
         return _zero_state(2 * self.num_qubits, self.device,
                            config.get_precision(), config.df64_enabled())
 
@@ -309,6 +338,9 @@ class DensityCircuit(_GateMethods):
         if not self._queue:
             return
         queue, self._queue = list(self._queue), []
+        if self.mesh is not None:
+            self._flush_sharded(queue)
+            return
         re = self._rho[0]
         if re.dtype == torch.float64 and not config.df64_enabled():
             self._rho = _flush_exact(queue, self._rho, self.num_qubits)
@@ -324,19 +356,64 @@ class DensityCircuit(_GateMethods):
                             np.float32 if mode == "pair32" else np.float64)
         self._rho = tuple(run(self._rho, params))
 
+    def _flush_sharded(self, queue):
+        """The sharded flush: the queue's 2n-view ops, parametrized and
+        scheduled for locality, run on the sharded rho."""
+        n2 = 2 * self.num_qubits
+        ops = [op for item in queue for op in _item_ops_2n(item,
+                                                           self.num_qubits)]
+        ops, values = parametrize(ops)
+        sharding = self._sharding()
+        ops, self._layout2n = _schedule(ops, n2, sharding.n_global,
+                                        self._layout2n)
+        self.last_ir = CircuitIR(n2, ops)
+        rho = self._rho
+        if rho.parts[0][0].is_complex():
+            self._rho = compile_ir(self.last_ir, sharding=sharding)(
+                rho, np.asarray(values, np.float32))
+        elif config.df64_enabled():
+            self._rho = compile_df64_fused_ir(self.last_ir,
+                                              sharding=sharding)(
+                rho, np.asarray(values, np.float64))
+        else:
+            self._rho = run_ops_f64_sharded(rho, ops, values)
+
+    def _restore_layout(self):
+        """Undo the locality relabels (one merged relabel), so readouts
+        address logical bits."""
+        if self._layout2n != list(range(2 * self.num_qubits)):
+            self._rho = _restore_sharded(self._rho, self._layout2n)
+            self._layout2n = list(range(2 * self.num_qubits))
+
+    def _ready(self):
+        """Flush; on a mesh also restore the identity layout."""
+        self.flush()
+        if self.mesh is not None:
+            self._restore_layout()
+
+    def _diagonal(self) -> torch.Tensor:
+        """diag(rho), float64 (from the shards that hold it, on a
+        mesh)."""
+        n = self.num_qubits
+        if self.mesh is None:
+            return pairdm.probabilities_pair_dm(self._rho[0], n)
+        r = torch.arange(1 << n)
+        return sharded.take(self._rho, (r << n) | r)[0]
+
     @property
     def state(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """rho as float planes ``(re, im_or_None)`` of the flattened
         ``(4^n,)`` view, row bits high (the JAX package returns one complex
         array, or its double engine's pair); ``im`` is None while rho is
         real. Kernel passes update these planes in place at the next
-        flush."""
-        self.flush()
+        flush. On a mesh, the sharded rho in the identity layout."""
+        self._ready()
         return self._rho
 
     def reset(self):
         """Back to |0...0><0...0|, in the precision set now."""
         self._queue.clear()
+        self._layout2n = list(range(2 * self.num_qubits))
         self._rho = None
         self._rho = self._init_rho()
 
@@ -346,9 +423,19 @@ class DensityCircuit(_GateMethods):
         """Projective measurement of one qubit: (outcome, its probability);
         rho collapses. The draw is the simulator's host random number, so
         one seed gives the JAX package's outcomes."""
-        self.flush()
+        self._ready()
         self._validate_qubit_index(qubit)
         n = self.num_qubits
+        if self.mesh is not None:
+            probs = self._diagonal()
+            p1 = float(probs.view(1 << (n - 1 - qubit), 2,
+                                  1 << qubit)[:, 1].sum())
+            outcome = 1 if self.simulator.host_random() < p1 else 0
+            sharded.project(self._rho, qubit + n, outcome)
+            sharded.project(self._rho, qubit, outcome)
+            trace = float(self._diagonal().sum())
+            sharded.scale(self._rho, 1.0 / max(trace, config.eps()))
+            return outcome, (p1 if outcome == 1 else 1.0 - p1)
         re, im = self._rho
         p1 = float(pairdm.prob_one_pair_dm(re, qubit, n))
         outcome = 1 if self.simulator.host_random() < p1 else 0
@@ -358,23 +445,27 @@ class DensityCircuit(_GateMethods):
     def sample(self, measured_qubits: List[int], num_shots: int) -> np.ndarray:
         """Shots over ``measured_qubits`` (qubits[0] the least significant
         bit of each outcome), int32, drawn on the device."""
-        self.flush()
+        self._ready()
         if not measured_qubits:
             raise ValueError("List of measured_qubits cannot be empty.")
         for idx in measured_qubits:
             self._validate_qubit_index(idx, f"measured_qubits element {idx}")
         if num_shots <= 0:
             raise ValueError("Number of shots must be positive.")
-        re = self._rho[0]
-        out = pairdm.sample_pair_dm(re, tuple(measured_qubits), num_shots,
-                                    self.simulator.generator(re.device))
+        marg = pairdm.marginal_probs(self._diagonal(), tuple(measured_qubits),
+                                     self.num_qubits)
+        out = pairsim.sample_marginal(marg, num_shots,
+                                      self.simulator.generator(marg.device))
         return out.cpu().numpy()
 
     def get_density_matrix(self) -> np.ndarray:
         """rho as a complex128 ``(2^n, 2^n)`` host array, row index high."""
-        self.flush()
+        self._ready()
         dim = 1 << self.num_qubits
-        re, im = self._rho
+        rho = self._rho
+        if self.mesh is not None:
+            rho = sharded._as_pair(sharded.gather(rho))
+        re, im = rho
         out = re.reshape(dim, dim).cpu().numpy().astype(np.complex128)
         if im is not None:
             out += 1j * im.reshape(dim, dim).cpu().numpy()
@@ -382,6 +473,9 @@ class DensityCircuit(_GateMethods):
 
     def purity(self) -> float:
         self.flush()
+        if self.mesh is not None:
+            # basis-independent: no layout restore needed
+            return float(sharded.norm2(self._rho))
         return float(pairdm.purity_pair_dm(*self._rho))
 
     def expval(self, pauli_operator: PauliOperator) -> float:
@@ -389,8 +483,21 @@ class DensityCircuit(_GateMethods):
         reads, accumulated in float64."""
         if not isinstance(pauli_operator, PauliOperator):
             raise TypeError("Input must be a PauliOperator object.")
-        self.flush()
+        self._ready()
         terms = [tuple(ops) for ops, _ in pauli_operator.terms]
         coeffs = [float(c) for _, c in pauli_operator.terms]
-        return float(pairdm.expval_terms_pair_dm(*self._rho, terms, coeffs,
-                                                 self.num_qubits))
+        n = self.num_qubits
+        if self.mesh is None:
+            return float(pairdm.expval_terms_pair_dm(*self._rho, terms,
+                                                     coeffs, n))
+        total = 0.0
+        for term, c in zip(terms, coeffs):
+            if all(p == "Z" for p, _ in term):
+                # a repeated qubit counts once, as in the JAX package
+                term = [("Z", q) for q in sorted({int(q) for _, q in term})]
+            idx, sign, phase = pairdm.pauli_entries(term, n)
+            re_v, im_v = sharded.take(self._rho, idx)
+            total += c * float(pairdm.pauli_value(re_v, im_v,
+                                                  sign.to(re_v.device),
+                                                  phase))
+        return total

@@ -339,20 +339,32 @@ def compile_df64_ir(ir, sharding=None):
     order through :func:`apply_op_df64` (SWAP_BITS and PERMUTE_BITS as
     index-bit moves), cached by structural key plus the concrete parameters
     the IR bakes in; ``params`` are the ParamRef values. ``ih = il = None``
-    carries a real state until the first complex gate."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "compile_df64_ir(sharding=...) needs the sharded engine, which "
-            "this package does not have yet")
+    carries a real state until the first complex gate. With ``sharding``
+    the program is ``f(state, params) -> state`` on a ShardedState of the
+    four planes: the same ops on every shard, relabels across the
+    local/global boundary as all-to-all rounds (gates already localized by
+    the scheduler)."""
     # imported here: the interpreter imports this module
     from ..compiler.interpreter import (_base_matrix, _complex_planes,
-                                        _host_params, _plan_key)
+                                        _df64_rows, _host_params, _plan_key,
+                                        run_sharded)
     from ..compiler.sharded_schedule import PERMUTE_BITS, SWAP_BITS
-    key = _plan_key(ir)
+    from ..parallel import sharded
+    sharded.check_sharding(sharding)
+    key = _plan_key(ir, sharding)
     fn = _DF64_EXEC_CACHE.get(key)
     if fn is not None:
         return fn
     ops = list(ir.ops)
+    if sharding is not None:
+        rows = _df64_rows(ir.num_qubits - sharding.n_global, per_op=True)
+
+        def run_sharded_ops(state, params=None):
+            sharded.check_sharding(sharding, state)
+            return run_sharded(state, ops, params, rows)
+
+        _DF64_EXEC_CACHE[key] = run_sharded_ops
+        return run_sharded_ops
 
     def run(rh, rl, ih, il, params=None):
         planes = (rh, rl, ih, il)

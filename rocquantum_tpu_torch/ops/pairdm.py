@@ -215,23 +215,37 @@ def _pauli_mask(ops: Sequence[tuple], n: int):
     return f, s, c
 
 
-def expval_pauli_string_pair_dm(re, im, ops: Sequence[tuple],
-                                n: int) -> torch.Tensor:
-    """Tr(P rho) from the 2^n entries ``rho[r ^ f, r]``, as a float64
-    0-d tensor."""
+def pauli_entries(ops: Sequence[tuple], n: int, device=None):
+    """``(idx, sign, c)`` with ``Tr(P rho) = Re(c * sum_r sign[r] *
+    rho.flat[idx[r]])`` for the Pauli string ``ops``: the 2^n flat indices
+    ``(r ^ f) * 2^n + r`` of the entries ``rho[r ^ f, r]``, their signs
+    ``(-1)^popcount(r & s)`` and the string's phase."""
     f, s, c = _pauli_mask(ops, n)
-    r = torch.arange(1 << n, device=re.device)
+    r = torch.arange(1 << n, device=device)
     idx = ((r ^ f) << n) | r
     parity = torch.zeros_like(r)
     for q in range(n):
         if (s >> q) & 1:
             parity ^= (r >> q) & 1
-    sign = (1 - 2 * parity).to(_F64)
-    total = c.real * torch.sum(torch.take(re, idx).to(_F64) * sign)
-    if c.imag != 0 and im is not None:
-        total = total - c.imag * torch.sum(torch.take(im, idx).to(_F64)
-                                           * sign)
+    return idx, (1 - 2 * parity).to(_F64), c
+
+
+def pauli_value(re_vals, im_vals, sign, c) -> torch.Tensor:
+    """Tr(P rho) from the entries :func:`pauli_entries` names, as a
+    float64 0-d tensor."""
+    total = c.real * torch.sum(re_vals.to(_F64) * sign)
+    if c.imag != 0 and im_vals is not None:
+        total = total - c.imag * torch.sum(im_vals.to(_F64) * sign)
     return total
+
+
+def expval_pauli_string_pair_dm(re, im, ops: Sequence[tuple],
+                                n: int) -> torch.Tensor:
+    """Tr(P rho) from the 2^n entries ``rho[r ^ f, r]``, as a float64
+    0-d tensor."""
+    idx, sign, c = pauli_entries(ops, n, re.device)
+    return pauli_value(torch.take(re, idx),
+                       None if im is None else torch.take(im, idx), sign, c)
 
 
 def expval_pauli_product_z_pair_dm(re, qubits: Sequence[int],

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..parallel import sharded
 from .pathfinder import ContractionPlan, OptimizerConfig, Pathfinder
 from .tensor import Tensor, parse_einsum_spec
 
@@ -180,14 +181,25 @@ class TensorNetwork:
                  mesh=None, axis_name: Optional[str] = None) -> Tensor:
         """Find a path and execute it, slicing any step whose working set
         (output or either input) exceeds the memory limit, and the step
-        with the largest output into at least ``num_slices`` slices."""
-        if mesh is not None or axis_name is not None:
-            raise NotImplementedError(
-                "TensorNetwork.contract(mesh=..., axis_name=...) needs the "
-                "sharded engine, which this package does not have yet")
+        with the largest output into at least ``num_slices`` slices.
+
+        With ``mesh`` (a ``parallel.Mesh``) and ``axis_name``, the slice
+        loop of each sliced step spreads over that mesh axis (at least one
+        slice a device): each mesh entry runs ``ceil(total / ndev)``
+        consecutive slices into the partial output of its device (one a
+        distinct device, so virtual shards of one card share one), and the
+        partials combine in one in-place sum on the first device (one
+        counted all-reduce)."""
+        if (mesh is None) != (axis_name is None):
+            raise ValueError("pass mesh and axis_name together")
         if not self.tensors:
             raise ValueError("network has no tensors")
-        return self._run(self._config(optimizer_config))[0]
+        devices = None
+        if mesh is not None:
+            axis = mesh.axis_names.index(axis_name)
+            devices = list(np.moveaxis(mesh.devices, axis, 0).reshape(
+                mesh.shape[axis_name], -1)[:, 0])
+        return self._run(self._config(optimizer_config), devices)[0]
 
     def compiled_memory_stats(self,
                               optimizer_config: Union[OptimizerConfig, dict,
@@ -200,9 +212,11 @@ class TensorNetwork:
         contracts.)"""
         return MemoryStats(self._run(self._config(optimizer_config))[1])
 
-    def _run(self, cfg: OptimizerConfig) -> Tuple[Tensor, int]:
+    def _run(self, cfg: OptimizerConfig, devices=None
+             ) -> Tuple[Tensor, int]:
         """The contraction's result and the executor's tally of the bytes
-        it held beyond its inputs."""
+        it held beyond its inputs; ``devices`` spread each sliced step's
+        slices (:meth:`contract`)."""
         plan = self._plan(cfg)
         self.last_plan = plan
         # the precision's complex itemsize, as the JAX package counts
@@ -210,6 +224,9 @@ class TensorNetwork:
         limit_elems = (cfg.memory_limit_bytes // itemsize
                        if cfg.memory_limit_bytes else None)
         min_slices = int(getattr(cfg, "num_slices", 0) or 0)
+        if devices is not None:
+            # every device must own at least one slice
+            min_slices = max(min_slices, len(devices))
         self.last_num_slices = 1
         # num_slices applies to the step with the largest output even when
         # no memory limit forces slicing there
@@ -231,7 +248,7 @@ class TensorNetwork:
             if (limit_elems is not None and step_elems > limit_elems) \
                     or force > 1:
                 result, temp = self._sliced_pair(a, b, step.out_labels, keep,
-                                                 limit_elems, force)
+                                                 limit_elems, force, devices)
             else:
                 result = contract_pair(a, b, keep=keep)
                 temp = _nbytes(result.data)
@@ -252,12 +269,14 @@ class TensorNetwork:
         return cur[0], peak
 
     def _sliced_pair(self, a: Tensor, b: Tensor, out_labels, keep,
-                     limit_elems: Optional[int], min_slices: int = 1
-                     ) -> Tuple[Tensor, int]:
+                     limit_elems: Optional[int], min_slices: int = 1,
+                     devices=None) -> Tuple[Tensor, int]:
         """Slice the largest indices of a violating contraction, free
-        (output) labels first, and stitch the partial results. Returns the
-        result and the step's tally (output + one slab + its input
-        copies)."""
+        (output) labels first, and stitch the partial results (over
+        ``devices``, when given, in consecutive runs of slices, one
+        partial output a distinct device, summed at the end). Returns the
+        result and the step's tally (the partial outputs, one slab and its
+        input copies)."""
         out_labels = list(out_labels)
         dims = {}
         dims.update({l: a.dim_of(l) for l in a.labels})
@@ -352,41 +371,69 @@ class TensorNetwork:
         a_labels, b_labels = list(a.labels), list(b.labels)
         out_shape = tuple(dims[l] for l in out_labels)
         dtype = torch.promote_types(a.data.dtype, b.data.dtype)
-        accumulate = any(l not in set(out_labels) for l, _ in specs)
-        out = (torch.zeros if accumulate else torch.empty)(
-            out_shape, dtype=dtype, device=a.data.device)
+        accumulate = devices is not None or any(
+            l not in set(out_labels) for l, _ in specs)
+        home = a.data.device
+        runs = {home: range(total)}
+        if devices is not None:
+            # consecutive runs of slices, one a mesh entry; the entries
+            # that share a device (virtual shards) accumulate into one
+            # partial output there
+            per = -(-total // len(devices))
+            runs = {}
+            for i, d in enumerate(devices):
+                runs.setdefault(torch.device(d), []).extend(
+                    range(i * per, min((i + 1) * per, total)))
         slab_bytes = int(np.prod([csize.get(l, dims[l]) for l in out_labels],
-                                 dtype=np.int64)) * out.element_size()
+                                 dtype=np.int64)) * dtype.itemsize
         copies = 0
-        for k in range(total):
-            rem = k
-            starts: Dict[str, int] = {}
-            for l, c in reversed(specs):
-                starts[l] = (rem % c) * csize[l]
-                rem //= c
-            ad, bd, region = a.data, b.data, out
-            for l, _ in specs:
-                if l in a_labels:
-                    ad = ad.narrow(a_labels.index(l), starts[l], csize[l])
-                if l in b_labels:
-                    bd = bd.narrow(b_labels.index(l), starts[l], csize[l])
-                if l in out_labels:
-                    region = region.narrow(out_labels.index(l), starts[l],
-                                           csize[l])
-            # a strided slab is copied once by the einsum
-            copies = max(copies, sum(_nbytes(x) for x in (ad, bd)
-                                     if not x.is_contiguous()))
-            # sliced free labels stay as (chunk-sized) output axes, so the
-            # slab has the out_labels axis order; sliced contracted labels
-            # are summed inside the einsum (partial products)
-            part = _einsum_pair(ad, a_labels, bd, b_labels, out_labels)
-            if accumulate:
-                region.add_(part)
-            else:
-                region.copy_(part)
-            del part
-        return Tensor(out, tuple(out_labels)), \
-            _nbytes(out) + slab_bytes + copies
+        partials = []
+        for dev, ks in runs.items():
+            ad_full, bd_full = a.data.to(dev), b.data.to(dev)
+            out = (torch.zeros if accumulate else torch.empty)(
+                out_shape, dtype=dtype, device=dev)
+            for k in ks:
+                rem = k
+                starts: Dict[str, int] = {}
+                for l, c in reversed(specs):
+                    starts[l] = (rem % c) * csize[l]
+                    rem //= c
+                ad, bd, region = ad_full, bd_full, out
+                for l, _ in specs:
+                    if l in a_labels:
+                        ad = ad.narrow(a_labels.index(l), starts[l], csize[l])
+                    if l in b_labels:
+                        bd = bd.narrow(b_labels.index(l), starts[l], csize[l])
+                    if l in out_labels:
+                        region = region.narrow(out_labels.index(l), starts[l],
+                                               csize[l])
+                # a strided slab is copied once by the einsum
+                copies = max(copies, sum(_nbytes(x) for x in (ad, bd)
+                                         if not x.is_contiguous()))
+                # sliced free labels stay as (chunk-sized) output axes, so
+                # the slab has the out_labels axis order; sliced contracted
+                # labels are summed inside the einsum (partial products)
+                part = _einsum_pair(ad, a_labels, bd, b_labels, out_labels)
+                if accumulate:
+                    region.add_(part)
+                else:
+                    region.copy_(part)
+                del part
+            partials.append(out)
+        # every partial output, plus one arriving on home at the sum
+        held = sum(_nbytes(p) for p in partials)
+        out = partials[0]
+        if devices is not None:
+            # free-sliced slabs land in disjoint zero regions and
+            # contracted-sliced ones accumulate, so a plain sum merges both
+            out = partials[0].to(home)
+            away = [p for p in partials if p.device != home]
+            if away:
+                held += _nbytes(out)
+            for p in partials[1:]:
+                out.add_(p.to(home))
+            sharded._count("all-reduce", sum(_nbytes(p) for p in away))
+        return Tensor(out, tuple(out_labels)), held + slab_bytes + copies
 
 
 def tensor_svd(tensor: Tensor, row_labels: Sequence[str],

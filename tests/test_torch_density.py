@@ -618,7 +618,7 @@ def test_noise_model_matches_reference(after_op):
 
 def test_errors_and_defaults(monkeypatch):
     sim = rq.Simulator(device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         rq.DensityCircuit(2, sim, mesh=object())
     with pytest.raises(ValueError):
         rq.DensityCircuit(2, sim).apply_channel("nope", 0.1, [0])

@@ -20,6 +20,8 @@ from rocquantum_tpu.compiler.ir import ParamRef as JaxParamRef
 from rocquantum_tpu.ops import df64 as jax_df64
 from rocquantum_tpu_torch import convert
 from rocquantum_tpu_torch.ops import df64
+from rocquantum_tpu_torch.parallel import (make_mesh, shard_state, sharded,
+                                           state_sharding)
 
 N = 6
 TOL = 1e-12
@@ -184,5 +186,30 @@ def test_compile_df64_ir_keeps_a_real_carry_and_rejects_sharding():
         *jax_df64.init_df64(N), jax.numpy.zeros(0)))
     np.testing.assert_allclose(df64.state_to_pair_f64(planes)[0].numpy(),
                                np.asarray(want[0]), rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError, match="sharded engine"):
+    # a sharding is a parallel.state_sharding, nothing else
+    with pytest.raises(TypeError, match="state_sharding"):
         df64.compile_df64_ir(port_ir, sharding=object())
+
+
+def test_compile_df64_ir_runs_sharded():
+    """Over 4 shards (bits 4 and 5 select the shard, so the SWAP_BITS
+    crosses the boundary) the real carry stays real and the planes are the
+    unsharded run's, bit for bit; a state of another sharding is refused."""
+    ir = JaxIR(N)
+    for q in range(N):
+        ir.add("RY", [q], params=[0.1 * (q + 1)])
+    ir.add("CNOT", [2], controls=[0])
+    ir.add("SWAP_BITS", [1, 5])
+    port_ir = convert.ir_from_reference(ir)
+    planes = df64.compile_df64_ir(port_ir)(
+        *df64.init_df64(N, "cpu")[:2], None, None)
+    mesh = make_mesh(4, devices=[torch.device("cpu")] * 4)
+    fn = df64.compile_df64_ir(port_ir, sharding=state_sharding(mesh))
+    out = sharded.gather(fn(shard_state(
+        df64.init_df64(N, "cpu")[:2] + (None, None), mesh)))
+    assert out[2] is None and out[3] is None
+    for got, ref in zip(out[:2], planes[:2]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=0)
+    other = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="not sharded as"):
+        fn(shard_state(df64.init_df64(N, "cpu")[:2] + (None, None), other))

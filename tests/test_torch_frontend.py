@@ -270,7 +270,7 @@ def test_compile_program_handle_and_rejections():
     refs.add("RY", [0], params=[ParamRef(0)])
     with pytest.raises(ValueError, match="fully-concrete"):
         rq.compile_program(refs, rq.Simulator(device="cpu"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         rq.compile_program(ir_t, rq.Simulator(device="cpu"), mesh=object())
 
 

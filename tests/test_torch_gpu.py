@@ -1,8 +1,10 @@
 """The CUDA kernels on the card against their plain-torch versions: the
 fused-layer kernels (f32 and df64), the index-bit rotation copy and the
 two tensor-core region dots; and the paths that launch them: Circuit,
-compile_program, the adjoint gradient and the flat-state engine
-(execute/compile_ir) with its front ends. Also the tensor-network
+compile_program, the adjoint gradient, the flat-state engine
+(execute/compile_ir) with its front ends, and the sharded Circuit on
+virtual shards of one card (and over every card, where there are two or
+more). Also the tensor-network
 executor on the card: float32-grade GEMMs under a global TF32 setting,
 the memory a sliced contraction takes from the allocator, and the native
 pathfinder.
@@ -994,3 +996,59 @@ def test_run_dynamic_on_the_card():
     """
     ez = expval_z_dynamic(parse_qasm3_program(teleport), 2, 4096, seed=1)
     assert abs(ez - np.cos(theta)) < 0.05
+
+
+def _sharded_ring(cuda, n, mesh_arg):
+    """The ring with a global diagonal, a measure of a global qubit and a
+    TFIM-like energy on a (sharded or unsharded) Circuit on the card."""
+    theta = np.random.default_rng(17).normal(size=n)
+    c = rq.Circuit(n, rq.Simulator(seed=9, device=cuda), mesh=mesh_arg)
+    for q in range(n):
+        c.ry(float(theta[q]), q)
+    for q in range(n):
+        c.cx(q, (q + 1) % n)
+    c.rz(0.4, n - 1)
+    c.flush()
+    outcome = c.measure(n - 1)
+    h = rq.PauliOperator({"Z0 Z1": 1.0, f"X{n - 1}": 0.5, "Y3 Y16": 0.25})
+    return c, outcome, c.expval(h)
+
+
+def _same_as_unsharded(cuda, n, got):
+    c, outcome, energy = got
+    ref, ref_outcome, ref_energy = _sharded_ring(cuda, n, None)
+    assert outcome[0] == ref_outcome[0]
+    assert abs(outcome[1] - ref_outcome[1]) < 1e-5
+    psi, want = c.get_statevector(), ref.get_statevector()
+    assert np.abs(psi - want).max() <= 1e-5 * np.abs(want).max()
+    assert abs(energy - ref_energy) <= 1e-4 * max(1.0, abs(ref_energy))
+
+
+def test_sharded_circuit_over_every_card_matches_unsharded(cuda):
+    """The same on ``default_mesh()`` (one shard a card) and on 8 shards
+    over the cards, where there are two cards or more (a power of two)."""
+    from rocquantum_tpu_torch.parallel import default_mesh, make_mesh
+    ndev = torch.cuda.device_count()
+    if ndev < 2 or ndev & (ndev - 1):
+        pytest.skip("needs two CUDA devices or more (a power of two)")
+    n = 18
+    cards = [torch.device("cuda", i) for i in range(ndev)]
+    for mesh in (default_mesh(), make_mesh(8, devices=cards * (8 // ndev))):
+        _same_as_unsharded(cuda, n, _sharded_ring(cuda, n, mesh))
+
+
+def test_sharded_circuit_on_the_card_matches_unsharded(cuda):
+    """Circuit(17, sim, mesh=4 virtual shards of the card): n_loc = 15, so
+    the flush plans kernel blocks, each pass one batched launch over the
+    4 shard rows; exchanges, a measure of a global qubit and the readouts
+    against the unsharded Circuit on the card."""
+    from rocquantum_tpu_torch.parallel import make_mesh
+    n = 17
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    before = (fused_sv.LAUNCHES, fused_sv.BATCHED_LAUNCHES)
+    got = _sharded_ring(cuda, n, mesh)
+    torch.cuda.synchronize()
+    launches = fused_sv.LAUNCHES - before[0]
+    assert launches > 0
+    assert fused_sv.BATCHED_LAUNCHES - before[1] == launches
+    _same_as_unsharded(cuda, n, got)

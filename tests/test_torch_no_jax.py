@@ -311,6 +311,48 @@ print("ok")
 """
 
 
+# the sharded engine on 8 virtual CPU shards (a scheduled flush with
+# exchanges, readouts, a measure, the merged restore), a sharded density
+# flush, a mesh-spread contraction and the compat shims
+_SHARDED = _BLOCK_JAX + r"""
+import numpy as np
+import torch
+import rocquantum_tpu_torch as rq
+from rocquantum_tpu_torch.compat import _rocq_hip_backend, rocq, rocquantum
+from rocquantum_tpu_torch.parallel import count_collectives, make_mesh
+from rocquantum_tpu_torch.tensornet import TensorNetwork
+
+mesh = make_mesh(8, devices=[torch.device("cpu")] * 8)
+c = rq.Circuit(6, rq.Simulator(seed=1, device="cpu"), mesh=mesh)
+c.h(5)
+for t in range(5):
+    c.cx(5, t)
+assert abs(c.expval(rq.PauliOperator("Z0 Z5")) - 1.0) < 1e-6
+m, p = c.measure(5)
+assert abs(p - 0.5) < 1e-6
+psi = c.get_statevector()
+assert abs(abs(psi[63 if m else 0]) - 1.0) < 1e-6
+assert count_collectives()["all-to-all"] >= 1
+d = rq.DensityCircuit(4, rq.Simulator(device="cpu"), mesh=mesh)
+d.h(3)
+d.apply_channel("depolarizing", 0.1, [3])
+assert abs(d.purity() - np.trace(np.linalg.matrix_power(
+    d.get_density_matrix(), 2)).real) < 1e-6
+tn = TensorNetwork(device="cpu")
+tn.add_tensor(np.eye(8, dtype=np.complex64), ["a", "b"])
+tn.add_tensor(np.eye(8, dtype=np.complex64), ["b", "a"])
+assert abs(complex(tn.contract(mesh=mesh, axis_name="sv").data) - 8) < 1e-5
+h = _rocq_hip_backend.RocsvHandle(device="cpu")
+buf = _rocq_hip_backend.allocate_state_internal(h, 2)
+_rocq_hip_backend.apply_h(h, buf, 2, 0)
+assert abs(_rocq_hip_backend.get_expectation_value_x(h, buf, 2, 0) - 1) < 1e-6
+assert rocq.Simulator is rq.Simulator and callable(rocquantum.get_expval)
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -346,6 +388,10 @@ def test_program_front_ends_run_with_jax_blocked():
 
 def test_batched_dynamic_qec_and_checkpoints_run_with_jax_blocked():
     _run_blocked(_BATCHED_AND_DYNAMIC)
+
+
+def test_sharded_engine_and_compat_shims_run_with_jax_blocked():
+    _run_blocked(_SHARDED)
 
 
 def test_relabel_and_region_dots_run_with_jax_blocked():

@@ -30,6 +30,7 @@ from rocquantum_tpu_torch import tensornet as ptn
 from rocquantum_tpu_torch.tensornet import _native_pathfinder
 from rocquantum_tpu_torch.tensornet import pathfinder as port_pathfinder
 from rocquantum_tpu_torch.tensornet.workspace import WorkspaceEstimator
+from rocquantum_tpu_torch.parallel import make_mesh
 
 RTOL = 2e-3
 RTOL_DOUBLE = 1e-10
@@ -279,6 +280,46 @@ def test_sliced_matches_unsliced_and_reference(name):
     _close(got.to_numpy(), unsliced.to_numpy())
 
 
+@pytest.mark.parametrize("name,shards", [("free", 4), ("contracted", 4),
+                                         ("num_slices", 8), ("ring", 4)])
+def test_mesh_spread_slices_match_the_reference(name, shards):
+    """contract(mesh=, axis_name=): at least one slice per device, each
+    device's consecutive slices into its own partial output, one counted
+    sum; the JAX package's mesh contraction on its virtual devices."""
+    from rocquantum_tpu.parallel import mesh as jax_mesh
+    from rocquantum_tpu_torch.parallel import (count_collectives,
+                                               reset_collectives)
+    if name == "ring":
+        specs, cfg = ([(rand((48, 48), 21), "ab"), (rand((48, 48), 22), "bc"),
+                       (rand((48, 48), 23), "ca")], {"num_slices": 4})
+    else:
+        specs, cfg = SLICE_CASES[name]
+    jax_net, port_net = _networks(specs)
+    want = jax_net.contract(dict(cfg), mesh=jax_mesh.make_mesh(shards),
+                            axis_name="sv")
+    reset_collectives()
+    got = port_net.contract(dict(cfg), axis_name="sv",
+                            mesh=make_mesh(shards, devices=[CPU] * shards))
+    assert port_net.last_num_slices == jax_net.last_num_slices >= shards
+    assert count_collectives()["all-reduce"] >= 1
+    assert got.labels == want.labels
+    _close(got.to_numpy(), want.to_numpy())
+    _close(got.to_numpy(), port_net.contract().to_numpy())
+
+
+def test_mesh_of_virtual_shards_holds_one_partial_output():
+    """Mesh entries that share a device accumulate into one partial output
+    there: the step's tally on 4 virtual shards of one device is the
+    unsharded sliced step's (one output, one slab)."""
+    _, port_net = _networks([(rand((48, 48), 21), "ab"),
+                             (rand((48, 48), 22), "bc")])
+    cfg = port_net._config({"num_slices": 4})
+    got, spread = port_net._run(cfg, [CPU] * 4)
+    want, alone = port_net._run(cfg)
+    assert spread == alone < 2 * 48 * 48 * 8
+    _close(got.to_numpy(), want.to_numpy())
+
+
 def test_memory_limit_of_the_network_applies():
     jax_net, port_net = _networks(_pair32(), memory_limit_bytes=32 * 32 * 2)
     port_net.contract()
@@ -321,8 +362,11 @@ def test_sliced_tally_is_bounded():
 
 def test_mesh_raises():
     _, port_net = _networks(_pair32())
-    with pytest.raises(NotImplementedError, match="sharded engine"):
-        port_net.contract({"num_slices": 8}, mesh=object(), axis_name="s")
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="together"):
+        port_net.contract({"num_slices": 8}, mesh=mesh)
+    with pytest.raises(ValueError, match="together"):
+        port_net.contract({"num_slices": 8}, axis_name="sv")
 
 
 def test_double_precision_contraction_matches_reference():
