@@ -134,10 +134,31 @@ Phases:
      shard's 2^24 planes; the density's 4 rows of 2^26 in f32, a shard's
      2^26 planes in df64) against the plain version on copies of their
      inputs, within SHARD_PASS_RTOL or SHARD_DF64_PASS_RTOL of max|amp|.
+  17. the Qiskit, Cirq and PennyLane plugins (since their port) on the
+     card, their device defaulting to it, with tests/_stubs on the path
+     where a framework is not installed: the n = 29 ring ansatz (phase 4's
+     first angle vector) plus a random complex two-qubit unitary as a
+     QuantumCircuit, every qubit measured, 4096 shots through
+     RocQuantumProvider().get_backend("rocq_simulator"), once with the
+     run's own kernel calls 0, 1, 3, 7, ... held to the plain version and
+     once counted and timed; get_statevector() against a Circuit(29) of
+     the same gates (timed beside its flush) and the counts' marginal over
+     qubits 0-2 against the Circuit's; Cirq at n = 26: GHZ plus an RX
+     column through the cirq.unitary fallback, simulate_sweep against the
+     per-op engine, _run of GHZ with 1024 repetitions (every row
+     all-equal); PennyLane at n = 26: RX/RY columns, a CNOT chain and a
+     QubitUnitary, analytic_probability(wires=[0, 1, 2]) against the
+     Circuit's marginal in the base class's wire order, generate_samples
+     at 4096 shots (shape, per-wire means); the flat complex-rho API at
+     n = 14 (init_density, apply_gate_dm, apply_channel on bench.py:485's
+     workload) against the closed form and DensityCircuit, its trace,
+     purity and 4096 int32 sample_dm draws, timed beside the
+     DensityCircuit flush; compile_pair_ir of a QFT of a basis state at
+     n = 20 against the closed form.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
 14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
-flushes, and the probe's R = 2^17 call of each dot) runs
+flushes, 17's plugin runs, and the probe's R = 2^17 call of each dot) runs
 with every launch count set to 0 just before it and read just after; the
 kernels line gives phase 12's counts as "density_launches" and its ms per
 pass of the density plans as "density_ms", phase 14's as
@@ -147,7 +168,10 @@ pass of the density plans as "density_ms", phase 14's as
 "batched_bound_ms" and "batched_max_abs_err", and phase 16's (16.1 f32
 and fill, 16.2 df64) as "sharded_launches" and the largest error of
 its checks against the plain version (16.1's fill and pass, 16.2's and
-16.4's held calls) as "sharded_max_abs_err".
+16.4's held calls) as "sharded_max_abs_err", and phase 17's plugin runs'
+(17.1-17.3, each with the counts set to 0 just before it) as
+"integration_launches" and the largest error of 17.1's held calls as
+"integration_max_abs_err".
 Prints a kernels JSON line (time, plain time, bound and one-call PyTorch
 time of each kernel), the nvidia-smi line and, last, the
 {"ok": true, "device": ...} line. Any failed check raises (non-zero exit,
@@ -247,6 +271,10 @@ SHARD_TOL = 1e-5      # f32 amplitudes: max abs error / max|amp|
 SHARD_DOUBLE_TOL = 1e-12
 SHARD_PASS_RTOL = 1e-5        # a sharded f32 pass, kernel vs plain, of
 SHARD_DF64_PASS_RTOL = 1e-12  # max|amp|; the df64 pass, promoted to f64
+INTEGRATION_SHOTS = 4096
+INTEGRATION_REPS = 1024       # Cirq _run repetitions
+INTEGRATION_TOL = 1e-5        # plugin amplitudes (of max|amp|), probabilities
+INTEGRATION_FRACTION_TOL = 0.03  # count and sample marginals
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -699,6 +727,8 @@ def main():
                             region_dot, dev)
     shard = sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate,
                           region_dot, dev)
+    plugins = integration_phase(rq, interpreter, fused_sv, fused_df64, rotate,
+                                region_dot, requests, dev)
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -722,6 +752,7 @@ def main():
         **batched,
         "sharded_launches": shard["fused_layer"],
         "sharded_max_abs_err": shard["errors"]["fused_layer"],
+        **plugins,
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
@@ -3576,6 +3607,302 @@ def sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
             "errors": {"fused_layer": max(pass_err, dens_err["single"]),
                        "fused_layer_init": fill_err,
                        "fused_layer_df64": max(df_err, dens_err["df64"])}}
+
+
+def framework_stubs():
+    """Put the in-repo qiskit/cirq/pennylane API stubs (tests/_stubs) on
+    the path where a framework is not installed, as tests/conftest.py
+    does; returns which frameworks are stubbed."""
+    import importlib.util
+    import os
+    absent = [m for m in ("qiskit", "cirq", "pennylane")
+              if importlib.util.find_spec(m) is None]
+    if absent:
+        sys.path.append(os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "_stubs"))
+    return absent
+
+
+def plugin_unitary(seed):
+    """A seeded random complex two-qubit unitary."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))
+    return q
+
+
+def integration_phase(rq, interpreter, fused_sv, fused_df64, rotate,
+                      region_dot, requests, dev):
+    """Phase 17: the Qiskit, Cirq and PennyLane plugins on the card at full
+    width, the flat complex-rho API at n = 14 and a float64 pair program.
+    Returns the plugins' fused-kernel launches and the largest error of
+    their held kernel calls."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp
+    from rocquantum_tpu_torch.models import qft_ir
+    from rocquantum_tpu_torch.ops import density, pairsim
+    from rocquantum_tpu_torch.ops import statevec as sv
+
+    t_phase = time.perf_counter()
+    rq.set_precision("single")
+    stubbed = framework_stubs()
+    import cirq
+    import pennylane as qml
+    from qiskit import QuantumCircuit
+    from rocquantum_tpu_torch.integrations import (cirq_simulator,
+                                                   pennylane_device,
+                                                   qiskit_provider)
+    print(f"integrations: {', '.join(stubbed) or 'none'} from tests/_stubs, "
+          f"{', '.join(m for m in ('qiskit', 'cirq', 'pennylane') if m not in stubbed) or 'none'} installed")
+    launches = {}
+
+    def counted(label, fn):
+        """``fn()`` with every launch count set to 0 just before it and
+        read just after; (result, seconds)."""
+        zero_counts(fused_sv, fused_df64, rotate, region_dot)
+        out, t = wall(fn)
+        launches[label] = fused_sv.LAUNCHES
+        check(fused_sv.LAUNCHES > 0, f"{label} launched the fused kernel")
+        check(fused_df64.LAUNCHES == 0, f"{label} launched no df64 pass")
+        return out, t
+
+    # ---- 17.1 Qiskit, n = 29: the ring ansatz and a complex unitary ------
+    n = ANSATZ_N
+    theta = requests[0]
+    u = plugin_unitary(17)
+    qc = QuantumCircuit(n, n)
+    k = 0
+    for _ in range(ANSATZ_LAYERS):
+        for q in range(n):
+            qc.ry(float(theta[k]), q)
+            k += 1
+        for q in range(n):
+            qc.cx(q, (q + 1) % n)
+    pair = (3, n // 2 + 3)
+    qc.unitary(u, list(pair))
+    qc.measure(list(range(n)), list(range(n)))
+    backend = qiskit_provider.RocQuantumProvider().get_backend(
+        "rocq_simulator")
+    check(backend._device.type == "cuda", "the plugins default to the card")
+    errs = []
+    with held_to_plain(fused_sv, "apply_fused_layer",
+                       fused_sv.apply_fused_layer_reference, tuple,
+                       errs) as calls:
+        _, t_first = wall(lambda: backend.run(qc, shots=INTEGRATION_SHOTS))
+    held_err = held_report("17.1 qiskit run, kernel vs plain", errs, calls,
+                           SHARD_PASS_RTOL)
+    result, t_run = counted("qiskit", lambda: backend.run(
+        qc, shots=INTEGRATION_SHOTS))
+    counts = result.get_counts()
+    check(sum(counts.values()) == INTEGRATION_SHOTS
+          and all(len(key) == n for key in counts), "qiskit counts layout")
+    psi, t_read = wall(backend.get_statevector)
+    circ = rq.Circuit(n, rq.Simulator(device=dev))
+
+    def enqueue():
+        circ.reset()
+        k = 0
+        for _ in range(ANSATZ_LAYERS):
+            for q in range(n):
+                circ.ry(float(theta[k]), q)
+                k += 1
+            for q in range(n):
+                circ.cx(q, (q + 1) % n)
+        circ._enqueue("UNITARY", pair, (), (), matrix=u)
+
+    flush_s = []
+    for _ in range(2):  # the first flush plans, the second finds the plan
+        enqueue()
+        flush_s.append(wall(circ.flush)[1])
+    re, im = circ.state
+    chunk = 1 << 26
+    err = top = 0.0
+    for start in range(0, 1 << n, chunk):
+        want = (re[start:start + chunk].double()
+                + 1j * im[start:start + chunk].double()).cpu().numpy()
+        err = max(err, float(np.abs(psi[start:start + chunk] - want).max()))
+        top = max(top, float(np.abs(want).max()))
+    del psi
+    marg = pairsim.marginal_probs_pair(re, im, [0, 1, 2]).cpu().numpy()
+    freq = np.zeros(8)
+    for key, v in counts.items():
+        freq[int(key, 2) & 7] += v / INTEGRATION_SHOTS
+    f_err = float(np.abs(freq - marg).max())
+    print(f"17.1 qiskit n={n}: {ANSATZ_LAYERS} ring layers + a complex "
+          f"unitary, {INTEGRATION_SHOTS} shots: run() first {t_first * 1e3:.1f}"
+          f" ms (plans; kernel calls held to plain), warm "
+          f"{t_run * 1e3:.1f} ms with {launches['qiskit']} fused launches; "
+          f"Circuit flush first {flush_s[0] * 1e3:.1f} ms, warm "
+          f"{flush_s[1] * 1e3:.1f} ms; get_statevector() {t_read * 1e3:.1f} "
+          f"ms; max abs err vs Circuit {err:.3e} = {err / top:.3e} of "
+          f"max|amp|; counts' marginal over qubits 0-2 {f_err:.4f} off")
+    check(err <= INTEGRATION_TOL * top, f"qiskit state error {err}")
+    check(f_err <= INTEGRATION_FRACTION_TOL, f"qiskit marginal {f_err}")
+    del backend, circ, re, im, result, counts
+    torch.cuda.empty_cache()
+
+    # ---- 17.2 Cirq, n = 26: GHZ + an RX column through cirq.unitary ------
+    n = QFT_N
+    qs = cirq.LineQubit.range(n)
+    angles = [0.2 + 0.03 * q for q in range(n)]
+    ghz = [cirq.H(qs[0])] + [cirq.CNOT(a, b) for a, b in zip(qs, qs[1:])]
+    circuit = cirq.Circuit(ghz + [cirq.rx(a)(q) for a, q in zip(angles, qs)])
+    simulator = cirq_simulator.RocQuantumSimulator()
+    (res,), t_sweep = counted("cirq", lambda: simulator.simulate_sweep(
+        circuit))
+    got = res.state_vector()
+    check(got.dtype == np.complex64 and got.shape == (1 << n,),
+          "cirq final state complex64")
+    ops = [GateOp("H", (0,))] + [GateOp("CNOT", (q + 1,), (q,))
+                                 for q in range(n - 1)]
+    ops += [GateOp("UNITARY", (q,), (), (), cirq.unitary(cirq.rx(a)))
+            for q, a in enumerate(angles)]
+    want = interpreter.run_ops_exact(sv.init_state(n, device=dev),
+                                     ops).cpu().numpy()
+    c_err = float(np.abs(got - want).max() / np.abs(want).max())
+    del got, want
+    meas = cirq.Circuit(ghz + [cirq.measure(*qs, key="m")])
+    rows, t_meas = counted("cirq_run", lambda: simulator._run(
+        meas, cirq.ParamResolver({}), INTEGRATION_REPS)["m"])
+    check(rows.shape == (INTEGRATION_REPS, n), "cirq _run shape")
+    parity_ok = bool(np.all(rows == rows[:, :1]))
+    ones = float(rows[:, 0].mean())
+    print(f"17.2 cirq n={n}: simulate_sweep {t_sweep * 1e3:.1f} ms "
+          f"({launches['cirq']} fused launches), max abs err vs the per-op "
+          f"engine {c_err:.3e} of max|amp|; _run GHZ {INTEGRATION_REPS} "
+          f"repetitions {t_meas * 1e3:.1f} ms ({launches['cirq_run']} "
+          f"launches): every row all-equal {parity_ok}, all-1 fraction "
+          f"{ones:.4f}")
+    check(c_err <= INTEGRATION_TOL, f"cirq state error {c_err}")
+    check(parity_ok, "cirq GHZ rows all-equal")
+    check(abs(ones - 0.5) <= INTEGRATION_FRACTION_TOL, f"cirq GHZ {ones}")
+    torch.cuda.empty_cache()
+
+    # ---- 17.3 PennyLane, n = 26: RX/RY, a CNOT chain, a QubitUnitary -----
+    u = plugin_unitary(18)
+    a = [0.1 + 0.02 * w for w in range(n)]
+    b = [0.5 - 0.01 * w for w in range(n)]
+    ops = [qml.RX(a[w], wires=w) for w in range(n)] + [
+        qml.RY(b[w], wires=w) for w in range(n)] + [
+        qml.CNOT(wires=[w, w + 1]) for w in range(n - 1)] + [
+        qml.QubitUnitary(u, wires=[0, n - 1])]
+    device = pennylane_device.RocQDevice(wires=n, shots=INTEGRATION_SHOTS)
+    _, t_apply = counted("pennylane", lambda: device.apply(ops))
+    probs, t_prob = wall(lambda: device.analytic_probability(wires=[0, 1, 2]))
+    samples, t_samp = wall(device.generate_samples)
+    circ = rq.Circuit(n, rq.Simulator(device=dev))
+    for w in range(n):
+        circ.rx(a[w], w)
+    for w in range(n):
+        circ.ry(b[w], w)
+    for w in range(n - 1):
+        circ.cx(w, w + 1)
+    circ._enqueue("UNITARY", (0, n - 1), (), (), matrix=u)
+    circ.flush()
+    re, im = circ.state
+    # the base class's wire order: wire j is the index's bit n - 1 - j
+    want = pairsim.marginal_probs_pair(re, im, [n - 3, n - 2, n - 1])
+    p_err = float(np.abs(probs - want.cpu().numpy()).max())
+    p_one = np.array([float(pairsim.prob_one_pair(re, im, n - 1 - j))
+                      for j in range(n)])
+    s_err = float(np.abs(samples.mean(axis=0) - p_one).max())
+    print(f"17.3 pennylane n={n}: apply {t_apply * 1e3:.1f} ms "
+          f"({launches['pennylane']} fused launches), "
+          f"analytic_probability(wires=[0, 1, 2]) {t_prob * 1e3:.1f} ms, "
+          f"max abs err vs Circuit {p_err:.3e}; generate_samples "
+          f"{t_samp * 1e3:.1f} ms, shape {samples.shape}, mean "
+          f"{samples.mean():.4f}, max per-wire mean error {s_err:.4f}")
+    check(p_err <= INTEGRATION_TOL, f"pennylane probabilities {p_err}")
+    check(samples.shape == (INTEGRATION_SHOTS, n), "pennylane sample shape")
+    check(s_err <= INTEGRATION_FRACTION_TOL, f"pennylane samples {s_err}")
+    del device, circ, re, im
+    torch.cuda.empty_cache()
+
+    # ---- 17.4 the flat complex-rho API, n = 14 ---------------------------
+    n = DENSITY_N
+    base = DENSITY_ANGLES[0]
+
+    def workload():
+        rho = density.init_density(n, device=dev)
+        for _ in range(DENSITY_LAYERS):
+            for q in range(n):
+                rho = density.apply_gate_dm(rho, "RY", [q],
+                                            params=(base + 0.01 * q,))
+            rho = density.apply_channel(rho, "depolarizing", DENSITY_P,
+                                        list(range(n)))
+        return rho
+
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    torch.cuda.reset_peak_memory_stats()
+    rho, t_rho = wall(workload)
+    rho_launches = fused_sv.LAUNCHES  # plain torch, as JAX's plain XLA
+    peak = torch.cuda.max_memory_allocated() / (1 << 30)
+    check(rho.dtype == torch.complex64 and rho.device.type == "cuda",
+          "flat rho stays complex64 on the card")
+    z_cf, purity_cf, _ = density_closed_form(n, base)
+    z = np.array([float(density.expval_z_dm(rho, q)) for q in range(n)])
+    trace = float(density.trace_dm(rho))
+    purity = float(density.purity(rho))
+    draws = density.sample_dm(rho, [0, 1, 2], DENSITY_SHOTS,
+                              torch.Generator(device=dev).manual_seed(17))
+    check(draws.dtype == torch.int32, "sample_dm draws int32")
+    p1 = (1 - z_cf[:3]) / 2
+    k = np.arange(8)
+    marg = np.prod([np.where((k >> q) & 1, p1[q], 1 - p1[q])
+                    for q in range(3)], axis=0)
+    freq = np.bincount(draws.cpu().numpy(), minlength=8) / DENSITY_SHOTS
+    d_frac = float(np.abs(freq - marg).max())
+    del rho
+    torch.cuda.empty_cache()
+    dc = rq.DensityCircuit(n, rq.Simulator(device=dev))
+    density_bench(dc, base)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    _, t_dc = wall(dc.flush)
+    dc_launches = fused_sv.LAUNCHES
+    z_dc = np.array([dc.expval(rq.PauliOperator(f"Z{q}")) for q in range(n)])
+    del dc
+    torch.cuda.empty_cache()
+    z_err = float(np.abs(z - z_cf).max())
+    zd_err = float(np.abs(z - z_dc).max())
+    p_rel = abs(purity - purity_cf) / purity_cf
+    print(f"17.4 flat rho n={n} (complex64, {(8 << (2 * n)) / (1 << 30):.0f}"
+          f" GiB): bench.py:485's workload through init_density / "
+          f"apply_gate_dm / apply_channel {t_rho * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB, beside a DensityCircuit flush {t_dc * 1e3:.1f} "
+          f"ms; max |<Z_q> - closed form| {z_err:.2e}, - DensityCircuit "
+          f"{zd_err:.2e}; trace - 1 {trace - 1:.2e}; purity rel "
+          f"{p_rel:.2e}; {DENSITY_SHOTS} sample_dm draws {d_frac:.4f} off "
+          f"the marginal; fused launches: flat rho {rho_launches}, "
+          f"DensityCircuit {dc_launches}")
+    check(z_err <= DENSITY_TOL, f"flat rho <Z_q> {z_err}")
+    check(zd_err <= DENSITY_TOL, f"flat rho vs DensityCircuit {zd_err}")
+    check(abs(trace - 1) <= DENSITY_TOL, f"flat rho trace {trace}")
+    check(p_rel <= DENSITY_PURITY_RTOL, f"flat rho purity {p_rel}")
+    check(d_frac <= DENSITY_FRACTION_TOL, f"flat rho draws {d_frac}")
+
+    # ---- 17.5 compile_pair_ir: QFT of a basis state, n = 20 --------------
+    n = FLAT_DOUBLE_N
+    x = 0x5A5A5 % (1 << n)
+    ir = CircuitIR(n, [GateOp("X", (q,)) for q in range(n) if (x >> q) & 1]
+                   + list(qft_ir(n).ops))
+    fn = pairsim.compile_pair_ir(ir)
+    (pre, pim), t_pair = wall(lambda: fn(*pairsim.init_pair(
+        n, torch.float64, dev)))
+    kk = np.arange(1 << n, dtype=np.int64)
+    want = np.exp(1j * ((x * kk) % (1 << n)).astype(np.float64)
+                  * (2 * np.pi / (1 << n))) / np.sqrt(1 << n)
+    q_err = float(np.abs(pre.cpu().numpy() + 1j * pim.cpu().numpy()
+                         - want).max())
+    print(f"17.5 compile_pair_ir QFT n={n} of |{x}>: {len(ir.ops)} ops in "
+          f"{t_pair * 1e3:.1f} ms, max abs err vs closed form {q_err:.3e}")
+    check(q_err <= FLAT_DOUBLE_TOL, f"pair QFT error {q_err}")
+    del pre, pim
+    torch.cuda.empty_cache()
+    print(f"integration phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"integration_launches": launches["qiskit"] + launches["cirq"]
+            + launches["cirq_run"] + launches["pennylane"],
+            "integration_max_abs_err": held_err}
 
 
 if __name__ == "__main__":

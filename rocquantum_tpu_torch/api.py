@@ -44,10 +44,9 @@ import numpy as np
 import torch
 
 from . import config
-from .compiler.interpreter import (compile_df64_fused_ir, compile_ir,
-                                   compile_pair32_ir, init_real, init_real64,
-                                   parametrize, run_ops_f64,
-                                   run_ops_f64_sharded)
+from .compiler.interpreter import (  # noqa: F401 (execute: re-exported)
+    compile_df64_fused_ir, compile_ir, compile_pair32_ir, execute, init_real,
+    init_real64, parametrize, run_ops_f64, run_ops_f64_sharded)
 from .compiler.ir import CircuitIR, GateOp, ParamRef
 from .compiler.passes import adjoint_ir
 from .compiler.qasm import to_qasm3

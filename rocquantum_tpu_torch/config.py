@@ -57,3 +57,12 @@ def real_dtype() -> torch.dtype:
 
 def eps() -> float:
     return 1e-12 if _precision == "double" else 1e-6
+
+
+def complex_from_parts(re, im, dtype=None) -> torch.Tensor:
+    """A complex tensor from (real, imaginary) parts, ``dtype`` defaulting
+    to the precision's complex type."""
+    dtype = dtype or complex_dtype()
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    return torch.complex(torch.as_tensor(re, dtype=real),
+                         torch.as_tensor(im, dtype=real))

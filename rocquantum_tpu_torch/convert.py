@@ -96,6 +96,15 @@ def density_from_reference(rho, device=None, dtype=None
     return state_from_numpy(re, im, device=device, dtype=dtype)
 
 
+def rho_from_reference(rho, device=None, dtype=None) -> torch.Tensor:
+    """The JAX package's flat complex rho (``ops/density.py``: a complex
+    ``(4^n,)`` or ``(2^n, 2^n)`` array) as this package's flat complex
+    ``(4^n,)`` tensor on ``device``; rho is a 2n-qubit state, so this is
+    :func:`state_from_reference` of its flattening."""
+    return state_from_reference(np.asarray(rho).reshape(-1), device=device,
+                                dtype=dtype)
+
+
 def df64_from_reference(state, device=None):
     """The JAX package's df64 state ``(re_hi, re_lo, im_hi, im_lo)`` as
     this package's four float32 planes on ``device``."""

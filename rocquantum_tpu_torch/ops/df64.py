@@ -129,6 +129,15 @@ def split_plane_f64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (x - hi.to(_F64)).to(_F32)
 
 
+def split_f64(v):
+    """A float64 scalar or tensor as an exact (hi, lo) float32 pair:
+    Python floats from a host scalar (:func:`split_f64_host`), float32
+    tensors from a tensor (:func:`split_plane_f64`)."""
+    if isinstance(v, torch.Tensor):
+        return split_plane_f64(v)
+    return split_f64_host(v)
+
+
 def state_from_pair_f64(re: torch.Tensor, im: Optional[torch.Tensor]):
     """Float64 pair ``(re, im)`` -> df64 planes; ``im=None`` gives the real
     carry ``(re_hi, re_lo, None, None)``."""

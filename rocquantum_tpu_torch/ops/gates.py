@@ -6,7 +6,9 @@ device in one table per kernel pass, so the builders here are numpy.
 :func:`gate_matrix_t` is their differentiable torch twin (the JAX package
 gets one for free by tracing its builders): the gradient takes dU/dθ from
 it, and so does the plain per-op energy of kernels that do host arithmetic
-on their parameters.
+on their parameters. The ``*_parts`` builders (``PARAMETERIZED_PARTS``)
+give a parameterized gate as real ``(re, im_or_None)`` torch matrices in
+the precision's real dtype, also differentiable.
 
 Matrix convention for multi-target gates: for ``targets=[t0, t1, ...]`` the
 row/column index has ``t0`` as the least significant bit.
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import config
 
 _SQRT1_2 = 1.0 / np.sqrt(2.0)
 
@@ -161,3 +165,74 @@ def gate_matrix_t(name: str, params=()) -> torch.Tensor:
     if key in _PARAMETERIZED_T:
         return _PARAMETERIZED_T[key](*(_angle(p) for p in params))
     raise ValueError(f"Unknown gate name: {name}")
+
+
+# -- (re, im) parts (torch, the precision's real dtype) -----------------------
+
+def _real_angle(p) -> torch.Tensor:
+    """A parameter as a tensor of the precision's real dtype (kept in
+    autograd's graph when it is one)."""
+    dtype = config.real_dtype()
+    if isinstance(p, torch.Tensor):
+        return p.to(dtype)
+    return torch.tensor(float(p), dtype=dtype)
+
+
+def _rows(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(row) for row in rows])
+
+
+def rx_parts(theta):
+    """(re, im) parts of RX."""
+    theta = _real_angle(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _rows([[c, z], [z, c]]), _rows([[z, -s], [-s, z]])
+
+
+def ry_parts(theta):
+    """(re, None): RY is real."""
+    theta = _real_angle(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    return _rows([[c, -s], [s, c]]), None
+
+
+def rz_parts(theta):
+    theta = _real_angle(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    return _rows([[c, z], [z, c]]), _rows([[-s, z], [z, s]])
+
+
+def phase_parts(lam):
+    lam = _real_angle(lam)
+    one, z = torch.ones_like(lam), torch.zeros_like(lam)
+    return (_rows([[one, z], [z, torch.cos(lam)]]),
+            _rows([[z, z], [z, torch.sin(lam)]]))
+
+
+def rzz_parts(theta):
+    theta = _real_angle(theta)
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    return (torch.diag(torch.stack([c, c, c, c])),
+            torch.diag(torch.stack([-s, s, s, -s])))
+
+
+def u3_parts(theta, phi, lam):
+    """[[c, -e^{i lam} s], [e^{i phi} s, e^{i (phi+lam)} c]] in parts."""
+    theta, phi, lam = (_real_angle(p) for p in (theta, phi, lam))
+    c, s = torch.cos(theta / 2), torch.sin(theta / 2)
+    z = torch.zeros_like(c)
+    re = _rows([[c, -torch.cos(lam) * s],
+                [torch.cos(phi) * s, torch.cos(phi + lam) * c]])
+    im = _rows([[z, -torch.sin(lam) * s],
+                [torch.sin(phi) * s, torch.sin(phi + lam) * c]])
+    return re, im
+
+
+# (re, im)-part builders of the parameterized gates; im=None marks a real
+# matrix
+PARAMETERIZED_PARTS = {
+    "RX": rx_parts, "RY": ry_parts, "RZ": rz_parts, "P": phase_parts,
+    "PHASE": phase_parts, "U3": u3_parts, "RZZ": rzz_parts,
+}

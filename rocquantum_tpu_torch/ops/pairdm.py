@@ -31,7 +31,8 @@ from ..compiler.interpreter import _base_matrix, _split_op
 from . import gates as _g
 from . import pairsim
 from . import statevec as sv
-from .density import channel_kraus, kraus_superoperator
+from .density import apply_kraus_at as apply_kraus_at_dm
+from .density import channel_kraus
 
 _F64 = torch.float64
 
@@ -52,6 +53,20 @@ def to_planes(state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return state.real.contiguous(), state.imag.contiguous()
 
 
+def init_density_pair(n: int, dtype=None, device=None):
+    """|0...0><0...0| as the flat ``(4^n,)`` float pair."""
+    return pairsim.init_pair(2 * n, dtype=dtype, device=device)
+
+
+def rows_conj(m_re, m_im):
+    """Entrywise conjugate of scalar rows (``pairsim.gate_rows``): the
+    column-side matrix of ``U rho U†``."""
+    if m_im is None:
+        return m_re, None
+    dim = len(m_re)
+    return m_re, [[-m_im[i][j] for j in range(dim)] for i in range(dim)]
+
+
 # -- the exact engine (complex rho, plain torch) ------------------------------
 
 def apply_op_dm(state: torch.Tensor, op, n: int, params=None) -> torch.Tensor:
@@ -63,26 +78,6 @@ def apply_op_dm(state: torch.Tensor, op, n: int, params=None) -> torch.Tensor:
     state = sv.apply_controlled_matrix(state, m, [c + n for c in controls],
                                        [t + n for t in targets])
     return sv.apply_controlled_matrix(state, np.conj(m), controls, targets)
-
-
-def apply_kraus_at_dm(state: torch.Tensor, kraus_ops: List,
-                      row_pos: Sequence[int],
-                      col_pos: Sequence[int]) -> torch.Tensor:
-    """rho' = sum_i K_i rho K_i† with the row and column qubits at the flat
-    bits ``row_pos`` and ``col_pos``: one dense superoperator for one or
-    two qubits, per Kraus term from three on (the superoperator would be
-    4^m x 4^m)."""
-    row_pos, col_pos = list(row_pos), list(col_pos)
-    if len(row_pos) >= 3:
-        acc = None
-        for k in kraus_ops:
-            k = np.asarray(k, np.complex128)
-            term = sv.apply_matrix(state, k, row_pos)
-            term = sv.apply_matrix(term, np.conj(k), col_pos)
-            acc = term if acc is None else acc + term
-        return acc
-    return sv.apply_matrix(state, kraus_superoperator(kraus_ops),
-                           col_pos + row_pos)
 
 
 def apply_op_pair_dm(re, im, op, n: int, params_resolved: Sequence = None):
@@ -254,6 +249,10 @@ def expval_pauli_product_z_pair_dm(re, qubits: Sequence[int],
     (a repeated qubit counts once, as in the JAX package)."""
     return expval_pauli_string_pair_dm(
         re, None, [("Z", q) for q in sorted(set(int(q) for q in qubits))], n)
+
+
+def expval_z_pair_dm(re, qubit: int, n: int) -> torch.Tensor:
+    return expval_pauli_product_z_pair_dm(re, [qubit], n)
 
 
 def expval_terms_pair_dm(re, im, terms, coeffs, n: int) -> torch.Tensor:

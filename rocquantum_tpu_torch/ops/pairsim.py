@@ -1,8 +1,14 @@
-"""Readout on the float-pair state: norms, Pauli expectations,
-probabilities, measurement, sampling and slices.
+"""The float-pair state: readout (norms, Pauli expectations,
+probabilities, measurement, sampling and slices), gate application and
+compiled float64 pair programs.
 
-The readout subset of ``rocquantum_tpu/ops/pairsim.py``, in plain torch
-on the device that holds the state. Every function takes the state as flat
+Counterpart of ``rocquantum_tpu/ops/pairsim.py``, in plain torch on the
+device that holds the state. The JAX package applies gates to the pair in
+explicit real arithmetic (roll-and-mask passes), a workaround of the TPU's
+float64 and complex128 limits; here a gate is ``statevec.apply_matrix`` on
+each plane with the real and imaginary parts of its matrix, and a
+compiled pair program is the exact engine
+(``interpreter.run_ops_f64``). Every function takes the state as flat
 ``(2^n,)`` float32 or float64 planes ``(re, im)``; ``im=None`` is a real
 state. Bit tests use strided views (no index arrays), and every reduction
 accumulates in float64. ``collapse_pair`` guards its renormalization with
@@ -19,11 +25,16 @@ here the batch is the leading axis of ``(b, 2^n)`` planes.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import config
+from ..utils.cache import BoundedCache
+from . import gates as G
+from . import statevec as sv
 from .statevec import num_qubits_of
 
 _F64 = torch.float64
@@ -307,3 +318,129 @@ def statevector_pair_batched(re, im, n: int, b: int):
     """The ``(b, 2^n)`` readback rows."""
     _batched(re, n, b)
     return re, im
+
+
+# ---------------------------------------------------------------------------
+# Gate application and compiled pair programs (the fp64 engine's surface)
+# ---------------------------------------------------------------------------
+
+def init_pair(n: int, dtype=None, device=None):
+    """|0...0> as a flat float pair (``dtype`` defaults to the precision's
+    real type, ``device`` to the card; a float32 plane is written by the
+    fill kernel on CUDA, as the JAX package writes it with its Pallas
+    fill)."""
+    dtype = dtype or config.real_dtype()
+    if device is None:
+        device = sv._default_device()
+    if dtype == torch.float32:
+        from ..compiler.interpreter import init_real
+        re = init_real(n, device)
+    else:
+        re = torch.zeros(1 << n, dtype=dtype, device=device)
+        re[0] = 1.0
+    return re, torch.zeros_like(re)
+
+
+def _rows_from_matrix(m):
+    """Nested Python-float rows ``(re, im_or_None)`` of a square host
+    matrix; ``im`` is None when every imaginary part is exactly 0."""
+    m = np.asarray(m, np.complex128)
+    if not np.any(m.imag):
+        return m.real.tolist(), None
+    return m.real.tolist(), m.imag.tolist()
+
+
+def gate_rows(name: str, params=(), dtype=None):
+    """``(re, im_or_None)`` scalar rows (nested Python floats) of a named
+    gate's matrix, CNOT/CX as X. ``dtype``, the JAX package's row
+    precision, is accepted for its signature: the rows hold float64 values
+    and :func:`apply_matrix_pair` casts them to the planes' dtype."""
+    key = name.upper()
+    if key in ("CNOT", "CX"):
+        key = "X"
+    return _rows_from_matrix(G.gate_matrix(key, params))
+
+
+def op_rows_targets(op, params_resolved: Sequence = None, dtype=None):
+    """Resolve a CircuitIR GateOp to ``(m_re, m_im_or_None, targets)``
+    scalar rows with the controls embedded as the high matrix-index bits
+    (appended to the targets): the identity except the all-controls-one
+    block. ``params_resolved`` overrides ``op.params``; implicitly
+    controlled names (CNOT, CZ, CRX, ..., CSWAP, the dsl form with the
+    control in ``targets`` included) normalize as the interpreter's.
+    ``dtype`` as in :func:`gate_rows`."""
+    from ..compiler.interpreter import _base_matrix, _split_op
+    if params_resolved is not None:
+        op = dataclasses.replace(op, params=tuple(params_resolved))
+    _, ctrls, tgts = _split_op(op)
+    m = _base_matrix(op, None)
+    if ctrls:
+        full = np.eye(m.shape[0] << len(ctrls), dtype=np.complex128)
+        full[-m.shape[0]:, -m.shape[0]:] = m
+        m = full
+    return _rows_from_matrix(m) + (list(tgts) + list(ctrls),)
+
+
+def apply_matrix_pair(re: torch.Tensor, im: Optional[torch.Tensor],
+                      m_re, m_im, targets: Sequence[int]):
+    """A dense m-qubit matrix given as real and imaginary rows (nested
+    floats, arrays or CPU tensors) on the pair: ``re' = M_re re - M_im
+    im``, ``im' = M_re im + M_im re``. ``m_im=None`` marks a real matrix (half the
+    products); ``im=None`` a real state, which stays real under one."""
+    mr = torch.as_tensor(m_re, dtype=re.dtype).to(re.device)
+    a = sv.apply_matrix(re, mr, targets)
+    b = None if im is None else sv.apply_matrix(im, mr, targets)
+    if m_im is None:
+        return a, b
+    mi = torch.as_tensor(m_im, dtype=re.dtype).to(re.device)
+    d = sv.apply_matrix(re, mi, targets)
+    if im is None:
+        return a, d
+    return a - sv.apply_matrix(im, mi, targets), b + d
+
+
+def apply_op_pair(re: torch.Tensor, im: Optional[torch.Tensor], op,
+                  params_resolved: Sequence = None):
+    """Apply one CircuitIR GateOp (relabels and ``D2M`` diagonals
+    included) to the pair exactly, on complex values; returns the full
+    pair."""
+    from ..compiler.interpreter import run_ops_f64
+    if params_resolved is not None:
+        op = dataclasses.replace(op, params=tuple(params_resolved))
+    return run_ops_f64(re, im, [op])
+
+
+_PAIR_EXEC_CACHE = BoundedCache()
+
+
+def compile_pair_ir(ir, sharding=None):
+    """``f(re, im, params) -> (re, im)`` for a CircuitIR: every op in
+    order, exactly, through ``interpreter.run_ops_f64`` (the float64 twin
+    of ``compile_ir``, without fusion, as in the JAX package), cached by
+    structural key plus the concrete parameters the IR bakes in; ``params``
+    are the ParamRef values. With ``sharding`` the program is ``f(state,
+    params) -> state`` on a ShardedState of float64 pairs
+    (``interpreter.run_ops_f64_sharded``: the same ops on every shard,
+    relabels across the local/global boundary as all-to-all rounds)."""
+    from ..compiler.interpreter import (_plan_key, run_ops_f64,
+                                        run_ops_f64_sharded)
+    from ..parallel import sharded
+    sharded.check_sharding(sharding)
+    key = _plan_key(ir, "pair", sharding)
+    fn = _PAIR_EXEC_CACHE.get(key)
+    if fn is not None:
+        return fn
+    ops = list(ir.ops)
+    if sharding is not None:
+        def run_sharded(state, params=None):
+            sharded.check_sharding(sharding, state)
+            return run_ops_f64_sharded(state, ops, params)
+
+        fn = run_sharded
+    else:
+        def run(re, im, params=None):
+            return run_ops_f64(re, im, ops, params)
+
+        fn = run
+    _PAIR_EXEC_CACHE[key] = fn
+    return fn

@@ -154,6 +154,13 @@ def plan_full_layer(n: int, supports: Sequence[Tuple[int, ...]], reach: int,
     return plan
 
 
+def plan_full_1q_layer(n: int, qubits: Sequence[int], reach: int,
+                       pair_ok: bool = True) -> List[KernelPass]:
+    """:func:`plan_full_layer` of one-qubit gates on ``qubits``."""
+    return plan_full_layer(n, [(int(q),) for q in qubits], reach,
+                           pair_ok=pair_ok)
+
+
 def execute_plan(re, im, plan: Sequence[object], gate_mats, n: int,
                  kinds: Sequence[str], real_flags: Sequence[bool] = None,
                  device=None):

@@ -1052,3 +1052,125 @@ def test_sharded_circuit_on_the_card_matches_unsharded(cuda):
     assert launches > 0
     assert fused_sv.BATCHED_LAUNCHES - before[1] == launches
     _same_as_unsharded(cuda, n, got)
+
+
+# -- the plugins, the flat-rho API and the pair surface ------------------------
+
+@pytest.fixture
+def stubs():
+    """The in-repo qiskit/cirq/pennylane API stubs, where the frameworks
+    are not installed (this file runs with --noconftest on the card)."""
+    import importlib.util
+    import os
+    import sys
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_stubs")
+    if any(importlib.util.find_spec(m) is None
+           for m in ("qiskit", "cirq", "pennylane")) and path not in sys.path:
+        sys.path.append(path)
+
+
+def _plugin_unitary(seed):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(size=(4, 4)))
+    return q
+
+
+def _same_amplitudes(got, want, rtol=1e-5):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.max(np.abs(got - want)) <= rtol * np.max(np.abs(want))
+
+
+def test_qiskit_backend_on_the_card_launches_the_fused_kernel(cuda, stubs):
+    """n = 16 (kernel width): a ring ansatz plus a dense two-qubit
+    unitary through the Qiskit backend on the card launches the fused
+    kernel and agrees with the backend on the CPU; the card is the
+    default device."""
+    from qiskit import QuantumCircuit
+    from rocquantum_tpu_torch.integrations import qiskit_provider
+    n = 16
+    qc = QuantumCircuit(n, n)
+    for q in range(n):
+        qc.ry(0.1 + 0.05 * q, q)
+    for q in range(n):
+        qc.cx(q, (q + 1) % n)
+    qc.unitary(_plugin_unitary(3), [2, 9])
+    qc.measure([0, 1], [0, 1])
+    backend = qiskit_provider.RocQuantumProvider().get_backend()
+    assert backend._device.type == "cuda"
+    before = fused_sv.LAUNCHES
+    counts = backend.run(qc, shots=256).get_counts()
+    torch.cuda.synchronize()
+    assert fused_sv.LAUNCHES > before
+    assert sum(counts.values()) == 256 and all(len(k) == 2 for k in counts)
+    cpu = qiskit_provider.RocQuantumBackend(device="cpu")
+    cpu.run(qc, shots=4)
+    _same_amplitudes(backend.get_statevector(), cpu.get_statevector())
+
+
+def test_cirq_and_pennylane_on_the_card_match_cpu(cuda, stubs):
+    import cirq
+    import pennylane as qml
+    from rocquantum_tpu_torch.integrations import (cirq_simulator,
+                                                   pennylane_device)
+    n = 16
+    qs = cirq.LineQubit.range(n)
+    circuit = cirq.Circuit([cirq.H(qs[0])] + [
+        cirq.CNOT(a, b) for a, b in zip(qs, qs[1:])] + [
+        cirq.rx(0.2 + 0.01 * k)(q) for k, q in enumerate(qs)])
+    (got,) = cirq_simulator.RocQuantumSimulator().simulate_sweep(circuit)
+    (want,) = cirq_simulator.RocQuantumSimulator(
+        device="cpu").simulate_sweep(circuit)
+    _same_amplitudes(got.state_vector(), want.state_vector())
+    ops = [qml.RX(0.3 + 0.01 * w, wires=w) for w in range(n)] + [
+        qml.CNOT(wires=[w, w + 1]) for w in range(n - 1)] + [
+        qml.QubitUnitary(_plugin_unitary(4), wires=[0, n - 1])]
+    dev = pennylane_device.RocQDevice(wires=n, shots=512)
+    ref = pennylane_device.RocQDevice(wires=n, device="cpu")
+    dev.apply(ops)
+    ref.apply(ops)
+    np.testing.assert_allclose(dev.analytic_probability([0, 1, 2]),
+                               ref.analytic_probability([0, 1, 2]),
+                               atol=1e-6)
+    assert dev.generate_samples().shape == (512, n)
+
+
+def test_flat_rho_api_on_the_card_matches_cpu(cuda):
+    from rocquantum_tpu_torch.ops import density
+    n = 6
+    rhos = []
+    for device in (cuda, "cpu"):
+        rho = density.init_density(n, device=device)
+        for q in range(n):
+            rho = density.apply_gate_dm(rho, "RY", [q], params=(0.3 + q,))
+        rho = density.apply_gate_dm(rho, "CNOT", [0, n - 1])
+        rho = density.apply_channel(rho, "amplitude_damping", 0.1,
+                                    list(range(n)))
+        rho = density.apply_kraus(rho, [np.sqrt(0.5) * np.eye(8),
+                                        np.sqrt(0.5) * np.kron(
+                                            np.eye(4), [[0, 1], [1, 0]])],
+                                  [1, 3, 4])
+        rhos.append(rho)
+    assert rhos[0].device.type == "cuda"
+    _same_amplitudes(rhos[0].cpu(), rhos[1])
+    for q in range(n):
+        assert abs(float(density.expval_z_dm(rhos[0], q))
+                   - float(density.expval_z_dm(rhos[1], q))) < 1e-5
+    assert abs(float(density.purity(rhos[0]))
+               - float(density.purity(rhos[1]))) < 1e-5
+
+
+def test_compile_pair_ir_on_the_card(cuda):
+    """A QFT of a basis state at n = 12 through the float64 pair program
+    against its closed form."""
+    from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp
+    from rocquantum_tpu_torch.ops import pairsim
+    n, x = 12, 0x5A3
+    ops = [GateOp("X", (q,)) for q in range(n) if (x >> q) & 1]
+    ir = CircuitIR(n, ops + list(qft_ir(n).ops))
+    re, im = pairsim.compile_pair_ir(ir)(*pairsim.init_pair(
+        n, torch.float64, cuda))
+    k = np.arange(1 << n)
+    want = np.exp(2j * np.pi * ((x * k) % (1 << n)) / (1 << n)) \
+        / np.sqrt(1 << n)
+    got = re.cpu().numpy() + 1j * im.cpu().numpy()
+    assert np.max(np.abs(got - want)) < 1e-12

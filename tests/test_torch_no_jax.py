@@ -353,6 +353,57 @@ print("ok")
 """
 
 
+# the Qiskit, Cirq and PennyLane plugins on the in-repo framework stubs,
+# the flat complex-rho API and the float64 pair surface
+_INTEGRATIONS_AND_SURFACE = _BLOCK_JAX + r"""
+import os
+sys.path.append(os.path.join(os.getcwd(), "tests", "_stubs"))
+import numpy as np
+import torch
+import cirq
+import pennylane as qml
+from qiskit import QuantumCircuit
+from rocquantum_tpu_torch import config, convert
+from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp
+from rocquantum_tpu_torch.integrations import (cirq_simulator,
+                                               pennylane_device,
+                                               qiskit_provider)
+from rocquantum_tpu_torch.ops import density, gates, pairdm, pairsim
+
+qc = QuantumCircuit(2, 2)
+qc.h(0)
+qc.cx(0, 1)
+qc.measure([0, 1], [0, 1])
+backend = qiskit_provider.RocQuantumProvider(device="cpu").get_backend()
+assert set(backend.run(qc, shots=100).get_counts()) <= {"00", "11"}
+q0, q1 = cirq.LineQubit.range(2)
+(res,) = cirq_simulator.RocQuantumSimulator(device="cpu").simulate_sweep(
+    cirq.Circuit([cirq.H(q0), cirq.CNOT(q0, q1)]))
+assert abs(abs(res.state_vector()[3]) - 2 ** -0.5) < 1e-6
+dev = pennylane_device.RocQDevice(wires=2, shots=10, device="cpu")
+dev.apply([qml.Hadamard(wires=0), qml.CNOT(wires=[0, 1])])
+assert dev.generate_samples().shape == (10, 2)
+
+rho = density.init_density(2, device="cpu")
+rho = density.apply_gate_dm(rho, "H", [0])
+rho = density.apply_channel(rho, "depolarizing", 0.1, [0, 1])
+assert abs(float(density.trace_dm(rho)) - 1) < 1e-6
+assert density.sample_dm(rho, [0], 5, torch.Generator()).dtype == torch.int32
+re, im = pairsim.compile_pair_ir(CircuitIR(3, [GateOp("H", (0,)),
+                                               GateOp("CNOT", (2,), (0,))]))(
+    *pairsim.init_pair(3, torch.float64, "cpu"))
+assert abs(float(re[5]) - 2 ** -0.5) < 1e-15 and float(im.abs().max()) == 0
+assert float(pairdm.expval_z_pair_dm(*pairdm.init_density_pair(
+    1, torch.float64, "cpu")[:1], 0, 1)) == 1.0
+assert gates.PARAMETERIZED_PARTS["RY"](0.2)[1] is None
+assert config.complex_from_parts([1.0], [2.0]).dtype == torch.complex64
+assert convert.rho_from_reference(np.eye(2).reshape(-1) / 2).numel() == 4
+assert not any(m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m]
+               for m in sys.modules)
+print("ok")
+"""
+
+
 def _run_blocked(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -396,6 +447,10 @@ def test_sharded_engine_and_compat_shims_run_with_jax_blocked():
 
 def test_relabel_and_region_dots_run_with_jax_blocked():
     _run_blocked(_RELABEL_AND_DOTS)
+
+
+def test_integrations_flat_rho_and_pair_surface_run_with_jax_blocked():
+    _run_blocked(_INTEGRATIONS_AND_SURFACE)
 
 
 def _assert_imports_no_jax(path):
