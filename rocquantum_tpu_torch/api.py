@@ -56,6 +56,7 @@ from .ops import pairsim
 from .ops import statevec as sv
 from .parallel import sharded
 from .parallel.mesh import SV_AXIS, Mesh, default_mesh
+from .utils import profiling
 from .utils.cache import BoundedCache
 
 
@@ -392,6 +393,9 @@ class Circuit(_GateMethods):
         # logical qubit -> physical index bit (SWAP gates relabel it; on a
         # sharded circuit the scheduler's relabels too)
         self._layout: List[int] = list(range(num_qubits))
+        # the request (utils/profiling) of the last CompiledProgram.run
+        # that handed this circuit out, which its readouts join
+        self._request = None
 
     # -- state management ---------------------------------------------------
 
@@ -399,6 +403,12 @@ class Circuit(_GateMethods):
         if self.mesh is None:
             return None
         return sharded.state_sharding(self.mesh, batch=self.batch_size > 1)
+
+    def _devices(self):
+        """The devices that hold the state: the mesh's, or the one."""
+        if self.mesh is None:
+            return (self.device,)
+        return self._sharding().devices
 
     def _zero(self):
         """|0...0> in the precision set now (see :attr:`state`)."""
@@ -609,16 +619,26 @@ class Circuit(_GateMethods):
         if num_shots <= 0:
             raise ValueError("Number of shots must be positive.")
         qubits = tuple(self._phys(q) for q in measured_qubits)
-        if self._is_sharded():
-            marg = sharded.marginal_probs(self.state, qubits)
-            gen = self.simulator.generator(marg.device)
-            return pairsim.sample_marginal(marg, num_shots, gen).cpu().numpy()
-        gen = self.simulator.generator(self.device)
-        if self._is_complex_batch():
-            out = sv.sample(self.state, qubits, num_shots, gen)
-        else:
-            out = pairsim.sample_pair(*self.state, qubits, num_shots, gen)
-        return out.cpu().numpy()
+        span = profiling.span
+        with span("rq.sample", request=self._request,
+                  devices=self._devices):
+            if self._is_complex_batch() and not self._is_sharded():
+                with span("rq.sample.draw"):
+                    out = sv.sample(self.state, qubits, num_shots,
+                                    self.simulator.generator(self.device))
+            else:
+                with span("rq.sample.marginal"):
+                    if self._is_sharded():
+                        marg = sharded.marginal_probs(self.state, qubits)
+                    else:
+                        marg = pairsim.marginal_probs_pair(*self.state,
+                                                           qubits)
+                gen = self.simulator.generator(
+                    marg.device if self._is_sharded() else self.device)
+                with span("rq.sample.draw"):
+                    out = pairsim.sample_marginal(marg, num_shots, gen)
+            with span("rq.sample.to_host"):
+                return out.cpu().numpy()
 
     def sample_counts(self, measured_qubits: List[int],
                       num_shots: int) -> Dict[str, int]:
@@ -686,17 +706,21 @@ class Circuit(_GateMethods):
         of one value per element for a batch."""
         if not isinstance(pauli_operator, PauliOperator):
             raise TypeError("Input must be a PauliOperator object.")
-        self.flush()
-        terms = [tuple((p, self._phys(q)) for p, q in ops)
-                 for ops, _ in pauli_operator.terms]
-        coeffs = [float(c) for _, c in pauli_operator.terms]
-        state = self.state
-        if self._is_sharded():
-            value = sharded.expval_terms(state, terms, coeffs)
-        else:
-            if self._is_complex_batch():
-                state = (state.real, state.imag)
-            value = pairsim.expval_terms_pair(*state, terms, coeffs)
+        # the span ends once the readout's work is queued: the wait for
+        # its value is the host's, not the readout's
+        with profiling.span("rq.expval", request=self._request,
+                            devices=self._devices):
+            self.flush()
+            terms = [tuple((p, self._phys(q)) for p, q in ops)
+                     for ops, _ in pauli_operator.terms]
+            coeffs = [float(c) for _, c in pauli_operator.terms]
+            state = self.state
+            if self._is_sharded():
+                value = sharded.expval_terms(state, terms, coeffs)
+            else:
+                if self._is_complex_batch():
+                    state = (state.real, state.imag)
+                value = pairsim.expval_terms_pair(*state, terms, coeffs)
         if self.batch_size > 1:
             return value.cpu().numpy()
         return float(value)
@@ -815,18 +839,24 @@ class CompiledProgram:
         as a float when an observable was given, else the (stateful)
         Circuit handle positioned at the final state for readbacks."""
         c = self._circ
-        p = self._params
-        if params is not None:
-            p = np.asarray(params, dtype=self._params.dtype)
-            if p.shape != self._params.shape:
-                raise ValueError(
-                    f"expected {self._params.shape[0]} parameter values, "
-                    f"got {p.shape}")
-        run, layout = self._plan
-        c._state = run(self._init_fn(), p)
-        c._layout = list(layout)
-        c._gate_queue.clear()
-        c._is_dirty = False
+        with profiling.span("rq.run", request=profiling.NEW,
+                            devices=c._devices) as request:
+            p = self._params
+            if params is not None:
+                with profiling.span("rq.run.params"):
+                    p = np.asarray(params, dtype=self._params.dtype)
+                if p.shape != self._params.shape:
+                    raise ValueError(
+                        f"expected {self._params.shape[0]} parameter values, "
+                        f"got {p.shape}")
+            run, layout = self._plan
+            with profiling.span("rq.run.init"):
+                state = self._init_fn()
+            c._state = run(state, p)
+            c._layout = list(layout)
+            c._gate_queue.clear()
+            c._is_dirty = False
+            c._request = request.request
         if self._obs is None:
             return c
         return c.expval(self._obs)

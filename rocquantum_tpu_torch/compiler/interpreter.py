@@ -57,6 +57,7 @@ from ..ops import gates as _g
 from ..ops import relabel
 from ..ops import statevec as sv
 from ..parallel import sharded
+from ..utils import profiling
 from ..utils.cache import BoundedCache
 from .ir import CircuitIR, GateOp, ParamRef
 from .passes import (DiagBlock, FusedBlock, PallasBlock, consolidate_high,
@@ -403,7 +404,8 @@ def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
                              num_qubits: int, device=None):
     """Run one PallasBlock on a (re, im) float32 state. A complex gate
     entering a real carry materializes the imaginary plane first."""
-    kinds, supports, gm, real_flags = pallas_block_specs(block, params)
+    with profiling.span("rq.run.gates"):
+        kinds, supports, gm, real_flags = pallas_block_specs(block, params)
     if not all(real_flags):
         if re is None:
             re = init_real(num_qubits, device)
@@ -441,7 +443,9 @@ def _apply_pallas_block_df64(planes, block: PallasBlock, params,
                              num_qubits: int):
     """Run one PallasBlock on df64 planes. A complex gate entering a real
     carry materializes the imaginary planes first."""
-    kinds, supports, gm, real_flags = pallas_block_specs_df64(block, params)
+    with profiling.span("rq.run.gates"):
+        kinds, supports, gm, real_flags = pallas_block_specs_df64(block,
+                                                                  params)
     if not all(real_flags):
         planes = _complex_planes(planes)
     return _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,

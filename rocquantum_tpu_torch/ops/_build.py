@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from typing import Dict, List
 
+from ..utils import profiling
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "rocquantum_tpu_torch")
@@ -73,12 +75,14 @@ def load_cuda(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` with nvcc (once per source hash) and load
     it."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    return ctypes.CDLL(_build(name, [src], [find_nvcc()] + NVCC_FLAGS,
-                              timeout=600))
+    with profiling.span("rq.build"):
+        return ctypes.CDLL(_build(name, [src], [find_nvcc()] + NVCC_FLAGS,
+                                  timeout=600))
 
 
 def load_host_cpp(name: str, source: str) -> ctypes.CDLL:
     """Build a host C++ source with g++ (once per source hash) and load
     it. Raises FileNotFoundError when g++ is missing."""
-    return ctypes.CDLL(_build(name, [source], ["g++"] + GXX_FLAGS,
-                              timeout=120))
+    with profiling.span("rq.build"):
+        return ctypes.CDLL(_build(name, [source], ["g++"] + GXX_FLAGS,
+                                  timeout=120))

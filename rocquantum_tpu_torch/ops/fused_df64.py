@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build, fused_sv
 from .df64 import df_add, df_mul, df_neg
 from .fused_sv import _check_specs, _normalize_specs
@@ -156,6 +157,13 @@ def apply_fused_layer_df64(rh: torch.Tensor, rl: torch.Tensor,
     On CUDA the planes are updated in place and returned; on the CPU the
     plain reference returns new planes. Raises ``ValueError`` on specs the
     pass cannot take and ``RuntimeError`` when the launch fails."""
+    with profiling.span("rq.run.pass"):
+        return _apply_fused_layer_df64(rh, rl, ih, il, specs, gate_mats,
+                                       pair_bits, real_flags)
+
+
+def _apply_fused_layer_df64(rh, rl, ih, il, specs, gate_mats, pair_bits,
+                            real_flags):
     planes = (rh, rl, ih, il)
     n, specs, pair_bits, real_flags = _check_layer(
         planes, specs, gate_mats, pair_bits, real_flags)

@@ -53,6 +53,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 from .statevec import num_qubits_of, view_dims
 
@@ -586,6 +587,13 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
     to the current CUDA device); on the CPU the plain reference returns new
     planes. Raises ``ValueError`` on specs the pass cannot take and
     ``RuntimeError`` when the launch fails."""
+    with profiling.span("rq.run.pass"):
+        return _apply_fused_layer(re, im, specs, gate_mats, pair_bits,
+                                  real_flags, num_qubits, device)
+
+
+def _apply_fused_layer(re, im, specs, gate_mats, pair_bits, real_flags,
+                       num_qubits, device):
     n, specs, pair_bits, real_flags = _check_layer(
         re, im, specs, gate_mats, pair_bits, real_flags, num_qubits)
     batch = 1 if re is None else re.numel() >> n

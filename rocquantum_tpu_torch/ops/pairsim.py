@@ -32,12 +32,26 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils import profiling
 from ..utils.cache import BoundedCache
 from . import gates as G
 from . import statevec as sv
 from .statevec import num_qubits_of
 
 _F64 = torch.float64
+
+
+def _passes(k: int = 1) -> None:
+    """Count ``k`` readout passes: torch operations over a whole plane or
+    a half-plane view (utils/profiling ``readout_passes``)."""
+    profiling.count("readout_passes", k)
+
+
+def _sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    """``torch.sum`` into float64: one pass, and one more for a plane of
+    another dtype, which the sum casts to float64 first."""
+    _passes(1 + (x.dtype != _F64))
+    return torch.sum(x, dim=dim, dtype=_F64)
 
 
 def _bit_view(x: torch.Tensor, q: int) -> torch.Tensor:
@@ -54,11 +68,12 @@ def _bit_halves(x: torch.Tensor, q: int):
 
 def probs_pair(re: torch.Tensor, im: Optional[torch.Tensor]) -> torch.Tensor:
     """|amplitude|^2 in the planes' dtype."""
+    _passes(1 if im is None else 3)
     return re * re if im is None else re * re + im * im
 
 
 def norm2_pair(re, im) -> torch.Tensor:
-    return torch.sum(probs_pair(re, im), dim=-1, dtype=_F64)
+    return _sum64(probs_pair(re, im))
 
 
 def expval_pauli_product_z_pair(re, im, qubits: Sequence[int]
@@ -67,14 +82,16 @@ def expval_pauli_product_z_pair(re, im, qubits: Sequence[int]
     s = probs_pair(re, im)
     for q in sorted(set(int(q) for q in qubits)):
         _, one = _bit_halves(s, q)
+        _passes()
         one.neg_()
-    return torch.sum(s, dim=-1, dtype=_F64)
+    return _sum64(s)
 
 
 def _apply_pauli(pre, pim, ch: str, q: int):
     """P|phi> for one Pauli on qubit q, on float planes (pim may be None
     for a real phi and X/Z)."""
     if ch == "Z":
+        _passes(2 if pim is None else 4)  # a clone and a sign flip a plane
         pre = pre.clone()
         _bit_halves(pre, q)[1].neg_()
         if pim is not None:
@@ -82,15 +99,18 @@ def _apply_pauli(pre, pim, ch: str, q: int):
             _bit_halves(pim, q)[1].neg_()
         return pre, pim
     def flip(x):
+        _passes()
         return _bit_view(x, q).flip(-2).reshape(x.shape)
 
     if ch == "X":
         return flip(pre), None if pim is None else flip(pim)
     # Y = [[0, -i], [i, 0]]: new_0 = -i x_1, new_1 = i x_0
     if pim is None:
+        _passes()
         pim = torch.zeros_like(pre)
     new_re = flip(pim)
     new_im = flip(pre)
+    _passes(2)
     _bit_halves(new_re, q)[1].neg_()
     _bit_halves(new_im, q)[0].neg_()
     return new_re, new_im
@@ -107,9 +127,11 @@ def expval_pauli_string_pair(re, im, ops: Sequence[tuple]) -> torch.Tensor:
     for ch, q in ops:
         if ch != "I":
             pre, pim = _apply_pauli(pre, pim, ch, int(q))
-    total = torch.sum(re * pre, dim=-1, dtype=_F64)
+    _passes()
+    total = _sum64(re * pre)
     if im is not None and pim is not None:
-        total = total + torch.sum(im * pim, dim=-1, dtype=_F64)
+        _passes()
+        total = total + _sum64(im * pim)
     return total
 
 
@@ -119,9 +141,10 @@ def expval_terms_pair(re, im, terms, coeffs) -> torch.Tensor:
     a batch."""
     total = torch.zeros(re.shape[:-1], dtype=_F64, device=re.device)
     for term, c in zip(terms, coeffs):
-        ev = norm2_pair(re, im) if len(term) == 0 \
-            else expval_pauli_string_pair(re, im, term)
-        total = total + float(c) * ev
+        with profiling.span("rq.expval.term"):
+            ev = norm2_pair(re, im) if len(term) == 0 \
+                else expval_pauli_string_pair(re, im, term)
+            total = total + float(c) * ev
     return total
 
 
@@ -177,7 +200,7 @@ def energy_pair(re, im, terms, coeffs) -> torch.Tensor:
 def prob_one_pair(re, im, qubit: int) -> torch.Tensor:
     """P(qubit = 1) (of each element)."""
     _, one = _bit_halves(probs_pair(re, im), qubit)
-    return torch.sum(one, dim=(-2, -1), dtype=_F64)
+    return _sum64(one, dim=(-2, -1))
 
 
 def collapse_pair(re, im, qubit: int, outcome: int
@@ -209,7 +232,10 @@ def marginal_probs_pair(re, im, qubits: Sequence[int]) -> torch.Tensor:
     n = num_qubits_of(re)
     p = probs_pair(re, im)
     if qubits == list(range(n)):
+        _passes()
         return p.to(_F64)
+    # the chunks' casts and scatter-adds: two passes over the plane
+    _passes(2)
     k = len(qubits)
     out = torch.zeros(re.shape[:-1] + (1 << k,), dtype=_F64,
                       device=re.device)
@@ -236,6 +262,7 @@ def sample_marginal(marg: torch.Tensor, shots: int,
     """Draw ``shots`` outcomes (int32) from a probability vector by
     inverse-CDF search on its device; from each row of ``(b, K)``
     probabilities, independently, into ``(b, shots)``, in one call."""
+    _passes()
     cdf = torch.cumsum(marg, -1)
     u = torch.rand(marg.shape[:-1] + (shots,), generator=generator,
                    dtype=_F64, device=marg.device) * cdf[..., -1:]

@@ -26,8 +26,13 @@ peer to peer; within a card it is a copy in device memory):
 
 Each round adds one to its entry of :data:`COUNTS` (JAX's collective
 names, :func:`count_collectives`) and its bytes to :data:`BYTES_MOVED`:
-the bytes that change shard, which are what cross a device boundary when
-every shard has a card of its own.
+the bytes whose source and destination cards differ: shards that share a
+device exchange within its memory and cross no boundary, unless the mesh
+repeats one device throughout (virtual shards), where each shard stands
+for a card. An exchange round is also the span ``rq.exchange``
+(utils/profiling), timed on every device of the mesh; the readouts count
+their plane passes (``readout_passes``) and give each Pauli term a span
+``rq.expval.term``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from .. import config
 from ..ops import fused_sv, pairsim
 from ..ops import gates as _g
 from ..ops import statevec as sv
+from ..utils import profiling
 from .mesh import BATCH_AXIS, DCN_AXIS, SV_AXIS, Mesh
 
 _F64 = torch.float64
@@ -147,6 +153,20 @@ class StateSharding:
                     i = len(self.parts) - 1
                 self.loc[(b, s)] = (i, len(self.parts[i][1]))
                 self.parts[i][1].append((b, s))
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The distinct devices, in the order of :attr:`parts`."""
+        return tuple(d for d, _ in self.parts)
+
+    def card(self, block: int, shard: int):
+        """The card that holds cell ``(block, shard)``, for counting the
+        bytes that cross cards: its device's index in :attr:`parts`, or,
+        on a mesh that repeats one device (virtual shards, each standing
+        for a card of its own), the cell itself."""
+        if len(self.parts) == 1:
+            return (block, shard)
+        return self.loc[(block, shard)][0]
 
     def _key(self):
         return (self.mesh, self.axis_name, self.batch)
@@ -340,7 +360,9 @@ def gather(state: ShardedState) -> Planes:
     or ``(b, 2^n)`` for a batch (one all-gather)."""
     nb, L = state.rows_per_cell, state.n_local
     dev = state.device
+    home = state.sharding.card(0, 0)
     out = []
+    moved = 0
     for k, p0 in enumerate(state.parts[0]):
         if p0 is None:
             out.append(None)
@@ -350,8 +372,10 @@ def gather(state: ShardedState) -> Planes:
                            dtype=p0.dtype, device=dev)
         for b, s, planes in state.cells():
             full[b * nb:(b + 1) * nb, s << L:(s + 1) << L].copy_(planes[k])
+            if state.sharding.card(b, s) != home:
+                moved += _nbytes(planes[k])
         out.append(full if state.batched else full[0])
-    _count("all-gather", sum(_nbytes(p) for p in out))
+    _count("all-gather", moved)
     return tuple(out)
 
 
@@ -359,13 +383,18 @@ def gather_slice(state: ShardedState, start: int, size: int) -> Planes:
     """Amplitudes ``[start, start + size)`` (of each element) as planes on
     the device of cell (0, 0), read from the shards that hold them."""
     L = state.n_local
+    home = state.sharding.card(0, 0)
     blocks: List[list] = [[] for _ in range(state.sharding.blocks)]
+    moved = 0
     for b, s, planes in state.cells():
         lo, hi = max(start, s << L), min(start + size, (s + 1) << L)
         if lo < hi:
-            blocks[b].append([None if p is None else
-                              p[:, lo - (s << L):hi - (s << L)]
-                              .to(state.device) for p in planes])
+            pieces = [None if p is None else p[:, lo - (s << L):hi - (s << L)]
+                      for p in planes]
+            if state.sharding.card(b, s) != home:
+                moved += sum(_nbytes(p) for p in pieces)
+            blocks[b].append([None if p is None else p.to(state.device)
+                              for p in pieces])
     out = []
     for k, p0 in enumerate(state.parts[0]):
         if p0 is None:
@@ -374,7 +403,7 @@ def gather_slice(state: ShardedState, start: int, size: int) -> Planes:
         full = torch.cat([torch.cat([c[k] for c in blk], dim=-1)
                           for blk in blocks])
         out.append(full if state.batched else full[0])
-    _count("all-gather", sum(_nbytes(p) for p in out))
+    _count("all-gather", moved)
     return tuple(out)
 
 
@@ -400,16 +429,28 @@ def permute_bits(state: ShardedState, dsts: Sequence[int],
     outgoing bits on top of the local index, one block all-to-all round
     (2^m chunks a shard) and a closing local permute. Global bits only:
     the same block copies with whole shards as chunks, one
-    collective-permute."""
+    collective-permute. A round that crosses the boundary, its local
+    permutes included, is the span ``rq.exchange``."""
     n, L = state.num_qubits, state.n_local
     src_of = list(range(n))
     for d, s in zip(dsts, srcs):
         src_of[int(d)] = int(s)
     if sorted(src_of) != list(range(n)):
         raise ValueError(f"not a permutation: {tuple(dsts)} <- {tuple(srcs)}")
-    out_vals = [src_of[g] for g in range(L, n) if src_of[g] < L]
-    in_src = [src_of[d] for d in range(L) if src_of[d] >= L]
-    m = len(out_vals)
+    if not any(src_of[g] != g for g in range(L, n)):
+        return _relabel(state, src_of, [], [])
+    with profiling.span("rq.exchange", devices=state.sharding.devices):
+        return _relabel(state, src_of,
+                        [src_of[g] for g in range(L, n) if src_of[g] < L],
+                        [src_of[d] for d in range(L) if src_of[d] >= L])
+
+
+def _relabel(state: ShardedState, src_of, out_vals, in_src
+             ) -> ShardedState:
+    """:func:`permute_bits` given ``src_of`` (new bit -> old bit), the
+    local bits that leave (``out_vals``, in the order of the global bits
+    they go to) and the global bits that come in (``in_src``)."""
+    n, L, m = state.num_qubits, state.n_local, len(out_vals)
     # (a) the outgoing local bits to the top m local positions, the bits
     # they displace into the positions they leave
     pos = list(range(L))  # pos[p]: the old local bit at local position p
@@ -441,7 +482,9 @@ def _exchange(state: ShardedState, src_of, out_vals, in_src
               ) -> ShardedState:
     """Step (b) of :func:`permute_bits`: every chunk of every new shard
     copied from the chunk of the old shard that holds it (an all-to-all
-    round when bits cross the boundary, else a collective-permute)."""
+    round when bits cross the boundary, else a collective-permute). The
+    bytes counted are those copied between cards
+    (:meth:`StateSharding.card`)."""
     n, L, m = state.num_qubits, state.n_local, len(out_vals)
     s_from_t, c_from_t = [], []
     for g in range(L, n):
@@ -476,7 +519,8 @@ def _exchange(state: ShardedState, src_of, out_vals, in_src
                               c_src * chunk:(c_src + 1) * chunk]
                     new[it][k][kt * nb:(kt + 1) * nb,
                                c * chunk:(c + 1) * chunk].copy_(piece)
-                    if s != t:
+                    if state.sharding.card(b, s) != \
+                            state.sharding.card(b, t):
                         moved += _nbytes(piece)
     _count("all-to-all" if m else "collective-permute", moved)
     return state.replace([tuple(p) for p in new])
@@ -503,14 +547,16 @@ def _reduce(state: ShardedState, partials) -> torch.Tensor:
     shards of each block, in shard order, on the device of cell (0, 0):
     ``(b, ...)`` for a batch, else the one row."""
     dev = state.device
+    home = state.sharding.card(0, 0)
     rows = []
     moved = 0
     for b in range(state.sharding.blocks):
         acc = None
         for s in range(state.sharding.num_shards):
             x = partials[(b, s)]
-            if x.device != dev:
+            if state.sharding.card(b, s) != home:
                 moved += _nbytes(x)
+            if x.device != dev:
                 x = x.to(dev)
             acc = x if acc is None else acc + x
         rows.append(acc)
@@ -662,35 +708,51 @@ def expval_terms(state: ShardedState, terms, coeffs) -> torch.Tensor:
                                     device=re.device)
                 for (b, s), (re, _) in cells.items()}
     for term, c in zip(terms, coeffs):
-        local, flip, phase = _pauli_split(term, L)
-        fetched = 0
-        for (b, s), (re, im) in cells.items():
-            ph = phase(s)
-            if not flip and not ph.imag:
-                v = pairsim.expval_pauli_string_pair(re, im, local) * ph.real
-            else:
-                pre, pim = re, im
-                for ch, q in local:
-                    pre, pim = pairsim._apply_pauli(pre, pim, ch, q)
-                are, aim = cells[(b, s ^ flip)]
-                if are.device != re.device:
-                    fetched += _nbytes(are) + _nbytes(aim)
-                    are = are.to(re.device)
-                    aim = None if aim is None else aim.to(re.device)
-                # Re(phase(s) <psi_{s ^ flip}| P_local psi_s>)
-                real = torch.sum(are * pre, dim=-1, dtype=_F64)
-                imag = torch.zeros_like(real)
-                if aim is not None and pim is not None:
-                    real = real + torch.sum(aim * pim, dim=-1, dtype=_F64)
-                if pim is not None:
-                    imag = imag + torch.sum(are * pim, dim=-1, dtype=_F64)
-                if aim is not None:
-                    imag = imag - torch.sum(aim * pre, dim=-1, dtype=_F64)
-                v = real * ph.real - imag * ph.imag
-            partials[(b, s)] = partials[(b, s)] + float(c) * v
-        if fetched:
-            _count("collective-permute", fetched)
+        with profiling.span("rq.expval.term"):
+            _term_partials(state, cells, partials, term, c)
     return _reduce(state, partials)
+
+
+def _dot64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum(x * y) into float64 over the last axis, counted as the readout
+    passes it makes (pairsim: a product, a sum, the sum's cast)."""
+    pairsim._passes()
+    return pairsim._sum64(x * y)
+
+
+def _term_partials(state: ShardedState, cells, partials, term, c):
+    """Add ``c <term>`` of every cell to ``partials``."""
+    local, flip, phase = _pauli_split(term, state.n_local)
+    fetched = 0
+    for (b, s), (re, im) in cells.items():
+        ph = phase(s)
+        if not flip and not ph.imag:
+            v = pairsim.expval_pauli_string_pair(re, im, local) * ph.real
+        else:
+            pre, pim = re, im
+            for ch, q in local:
+                pre, pim = pairsim._apply_pauli(pre, pim, ch, q)
+            are, aim = cells[(b, s ^ flip)]
+            if state.sharding.card(b, s ^ flip) != \
+                    state.sharding.card(b, s):
+                fetched += _nbytes(are) + _nbytes(aim)
+            if are.device != re.device:
+                pairsim._passes(1 if aim is None else 2)
+                are = are.to(re.device)
+                aim = None if aim is None else aim.to(re.device)
+            # Re(phase(s) <psi_{s ^ flip}| P_local psi_s>)
+            real = _dot64(are, pre)
+            imag = torch.zeros_like(real)
+            if aim is not None and pim is not None:
+                real = real + _dot64(aim, pim)
+            if pim is not None:
+                imag = imag + _dot64(are, pim)
+            if aim is not None:
+                imag = imag - _dot64(aim, pre)
+            v = real * ph.real - imag * ph.imag
+        partials[(b, s)] = partials[(b, s)] + float(c) * v
+    if fetched:
+        _count("collective-permute", fetched)
 
 
 def take(state: ShardedState, index: torch.Tensor) -> Planes:
