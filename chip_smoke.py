@@ -8,9 +8,9 @@ Run from the repository root, with one CUDA device visible:
 Phases:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions
      and which gate-pass planner runs;
-  2. build the four kernels (csrc/fused_sv.cu, fused_df64.cu,
-     rotate_bits.cu, region_dot.cu) from the checkout, one nvcc per source,
-     all started together;
+  2. build the five kernels (csrc/fused_sv.cu, fused_df64.cu,
+     rotate_bits.cu, region_dot.cu, pauli_readout.cu) from the checkout,
+     one nvcc per source, all started together;
   3. kernel against its plain-torch version on the card: seeded random
      passes at n = 22 over every gate kind, {no pair bits, one, three,
      five (real plane only)}, {real plane, complex} and the
@@ -155,11 +155,26 @@ Phases:
      purity and 4096 int32 sample_dm draws, timed beside the
      DensityCircuit flush; compile_pair_ir of a QFT of a basis state at
      n = 20 against the closed form.
+  18. the Pauli readout kernel (csrc/pauli_readout.cu; it replaces no TPU
+     kernel) on the TFIM ring at n = 29 on a float32 plane and on a
+     float64 plane, and on one shard's 2^30 complex64 amplitudes (the
+     .real / .imag views): against the plain per-term readout within
+     READOUT_RTOL / DF64_READOUT_RTOL of sum |c|, the same bits on a
+     second launch, timed in turns (plain, kernel, kernel, plain) beside
+     its byte bound (one read of the planes, fixed by the function and
+     the card, not by the kernel's sweeps); ``python3 -c "import
+     chip_smoke; chip_smoke.readout_phase()"`` runs it alone.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
 14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
 flushes, 17's plugin runs, and the probe's R = 2^17 call of each dot) runs
-with every launch count set to 0 just before it and read just after; the
+with the launch counts of its engine kernels set to 0 just before it and
+read just after. The Pauli readout kernel's count is set to 0 and read
+likewise around phase 4's and phase 7's requests, 11.1's first gradient,
+11.3's n = 29 replays and 16.1's energy, and checked to be one launch a
+readout (a cell a launch on 16.1's shards); the kernels line gives these
+as the pauli_readout row's "launches", "df64_launches",
+"gradient_launches", "replay_launches" and "sharded_launches". The
 kernels line gives phase 12's counts as "density_launches" and its ms per
 pass of the density plans as "density_ms", phase 14's as
 "flat_launches" and its complex pass's times and bound as "flat_ms",
@@ -275,6 +290,10 @@ INTEGRATION_SHOTS = 4096
 INTEGRATION_REPS = 1024       # Cirq _run repetitions
 INTEGRATION_TOL = 1e-5        # plugin amplitudes (of max|amp|), probabilities
 INTEGRATION_FRACTION_TOL = 0.03  # count and sample marginals
+READOUT_N = 29            # the benchmark's one-card energy cells
+READOUT_SHARD_N = 30      # one card's shard of the four-card cell
+READOUT_RTOL = 1e-7       # kernel vs plain readout, of sum |c| (float32)
+DF64_READOUT_RTOL = 1e-13  # the same on float64 planes
 
 # H100 SXM peaks (NVIDIA data sheet): device memory, FP32 outside the
 # tensor cores and dense TF32 on them; a bound is the larger of bytes / HBM
@@ -475,7 +494,8 @@ def main():
                                              qft_ir)
     from rocquantum_tpu_torch.ops import (_build, _native_planner, df64,
                                           fused_df64, fused_sv, pairsim,
-                                          region_dot, relabel, rotate)
+                                          pauli_readout, region_dot, relabel,
+                                          rotate)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -491,13 +511,16 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    kernel_modules = (fused_sv, fused_df64, rotate, region_dot)
+    kernel_modules = (fused_sv, fused_df64, rotate, region_dot,
+                      pauli_readout)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:
         for job in [pool.submit(m.build) for m in kernel_modules]:
             job.result()
-    print(f"build: fused_sv.cu, fused_df64.cu, rotate_bits.cu and "
-          f"region_dot.cu in parallel in {time.perf_counter() - t0:.2f} s")
-    for name in ("fused_sv", "fused_df64", "rotate_bits", "region_dot"):
+    print(f"build: fused_sv.cu, fused_df64.cu, rotate_bits.cu, "
+          f"region_dot.cu and pauli_readout.cu in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("fused_sv", "fused_df64", "rotate_bits", "region_dot",
+                 "pauli_readout"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -622,12 +645,15 @@ def main():
         check(circ.state[1] is None, "ansatz state stays real")
         return energy, norm, t_flush
 
-    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot, pauli_readout)
     answers = [answer(theta) for theta in requests]
     launches = fused_sv.LAUNCHES
     init_launches = fused_sv.ZERO_LAUNCHES
+    readout_paths = {"launches": pauli_readout.LAUNCHES}
     check(fused_df64.LAUNCHES == 0, "the f32 slice launched no df64 pass")
     check(init_launches > 0, "each request started from the fill launch")
+    check(readout_paths["launches"] == REQUESTS,
+          f"one readout launch a request: {readout_paths['launches']}")
     with plain_layers(fused_sv, "apply_fused_layer",
                       fused_sv.apply_fused_layer_reference):
         plain_answers = [answer(theta) for theta in requests]
@@ -707,16 +733,18 @@ def main():
     init = init_timing(fused_sv, n, dev)
     init["launches"] = init_launches
     gen_zero_timing(fused_sv, passes[0], n, dev)
-    print(f"fill launches in the main-path run: {init_launches}")
+    print(f"fill launches in the main-path run: {init_launches}; readout "
+          f"launches {readout_paths['launches']}")
 
     phase4_energies = [e for e, _, _ in answers]
-    df, df64_energy = df64_phases(rq, interpreter, PallasBlock,
-                     hardware_efficient_ansatz_ir, qft_ir, df64, fused_df64,
-                     fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
+    df, df64_energy, readout_paths["df64_launches"] = df64_phases(
+        rq, interpreter, PallasBlock, hardware_efficient_ansatz_ir, qft_ir,
+        df64, fused_df64, fused_sv, pairsim, rng, gen, dev, sim, qft_f32_err)
     rot = rotation_phases(fused_sv, relabel, rotate, rng, gen, dev)
     lane, row = probe_phase(region_dot, fused_sv, gen, dev)
-    gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
-                   requests, phase4_energies, df64_energy, dev)
+    readout_paths.update(gradient_phase(
+        rq, qft_ir, fused_sv, fused_df64, rotate, region_dot, requests,
+        phase4_energies, df64_energy, dev))
     density, density_ms = density_phase(rq, interpreter, PallasBlock,
                                         fused_sv, fused_df64, df64, rotate,
                                         region_dot, dev)
@@ -729,6 +757,8 @@ def main():
                           region_dot, dev)
     plugins = integration_phase(rq, interpreter, fused_sv, fused_df64, rotate,
                                 region_dot, requests, dev)
+    readout_paths["sharded_launches"] = shard["pauli_readout"]
+    readout = {**readout_phase(), **readout_paths}
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -790,6 +820,12 @@ def main():
         "source": "rocquantum_tpu_torch/csrc/region_dot.cu",
         "replaces": ".scratch/tpu_mxu_probe.py:55",
         **row,
+    }, {
+        "name": "pauli_readout",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/pauli_readout.cu",
+        "replaces": None,
+        **readout,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1164,10 +1200,11 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
                 qft_f32_err):
     """Phases 6 and 7: the df64 kernel against its plain version on the
     card, then the double-precision slice at n = 26. Returns the df64
-    kernel's numbers for the kernels line and the first request's
-    energy."""
+    kernel's numbers for the kernels line, the first request's energy and
+    the slice's Pauli readout launches."""
     import numpy as np
     import torch
+    from rocquantum_tpu_torch.ops import pauli_readout
 
     t_phases = time.perf_counter()
 
@@ -1290,11 +1327,14 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
 
     rq.set_precision("df64")
     circ = rq.Circuit(n, sim)
-    fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
+    fused_sv.LAUNCHES = fused_df64.LAUNCHES = pauli_readout.LAUNCHES = 0
     answers = [answer(circ, theta, True) for theta in requests]
     launches = fused_df64.LAUNCHES
+    readout_launches = pauli_readout.LAUNCHES
     check(launches > 0, "the df64 slice launched the df64 kernel")
     check(fused_sv.LAUNCHES == 0, "the df64 slice launched no f32 pass")
+    check(readout_launches == REQUESTS,
+          f"one df64 readout launch a request: {readout_launches}")
     df64_twins(rq, interpreter, ansatz_ir, df64, pairsim, circ, hamiltonian,
                answers[-1][0], sim, dev)
     fused_sv.LAUNCHES = fused_df64.LAUNCHES = 0
@@ -1358,11 +1398,13 @@ def df64_phases(rq, interpreter, PallasBlock, ansatz_ir, qft_ir, df64,
     best = min(t for _, _, t in answers)
     print(f"df64 ansatz: {gates} gates per request, best flush "
           f"{best * 1e3:.2f} ms = {gates / best:.1f} gates/s")
-    print(f"df64 launches in the main-path run: {launches}")
+    print(f"df64 launches in the main-path run: {launches}; readout "
+          f"launches {readout_launches}")
     print(f"df64 phases: {time.perf_counter() - t_phases:.1f} s")
     return {"launches": launches, "max_abs_err": worst,
             "ms": min(turns[1], turns[2]), "plain_ms": min(turns[0], turns[3]),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}, e0
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}, \
+        e0, readout_launches
 
 
 def df64_qft_pass(interpreter, PallasBlock, qft_ir, df64, fused_df64,
@@ -1845,9 +1887,11 @@ def wall(fn):
 def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
                    requests, phase4_energies, df64_energy, dev):
     """Phase 11: the kernel front end, compiled programs and adjoint
-    gradients at the main path's widths."""
+    gradients at the main path's widths. Returns the Pauli readout
+    launches of 11.1's first gradient and 11.3's n = 29 replays."""
     import numpy as np
     import torch
+    from rocquantum_tpu_torch.ops import pauli_readout
 
     t_phase = time.perf_counter()
     gib = 1 << 30
@@ -1862,11 +1906,14 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_deep = torch.cuda.memory_allocated()
-    zero_counts(fused_sv, fused_df64, rotate, region_dot)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot, pauli_readout)
     (value, grads), t_first = wall(lambda: rq.adjoint_grad(
         ring, n, sim, theta, hamiltonian, return_value=True))
     launches = (fused_sv.LAUNCHES, fused_sv.ZERO_LAUNCHES,
                 fused_sv.INIT_LAUNCHES, fused_df64.LAUNCHES)
+    readouts = {"gradient_launches": pauli_readout.LAUNCHES}
+    check(readouts["gradient_launches"] == 1,
+          f"the gradient's forward energy is one readout launch: {readouts}")
     peak_deep = torch.cuda.max_memory_allocated()
     print(f"gradient n={n}, {ANSATZ_LAYERS} layers, {params} angles: "
           f"launches (fused, fill, from |0...0>, df64) {launches}, first "
@@ -1933,7 +1980,11 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
 
 
     # ---- 11.3 compile_program replays -------------------------------------
+    zero_counts(pauli_readout)
     replayed = [prog.run(r) for r in requests]
+    readouts["replay_launches"] = pauli_readout.LAUNCHES
+    check(readouts["replay_launches"] == len(requests),
+          f"one readout launch a replay: {readouts}")
     for r, (got, want) in enumerate(zip(replayed, phase4_energies)):
         rel = abs(got - want) / abs(want)
         print(f"compile_program n={n} request {r}: {got:.7f} vs phase 4 "
@@ -2047,7 +2098,9 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
           f"error {err:.2e}), {result.nfev} energy+gradient evaluations in "
           f"{t_vqe:.2f} s")
     check(err <= VQE_H2_ATOL, f"VQE-H2 energy {result.fun}")
-    print(f"gradient phase: {time.perf_counter() - t_phase:.1f} s")
+    print(f"gradient phase: {time.perf_counter() - t_phase:.1f} s; readout "
+          f"launches {readouts}")
+    return readouts
 
 
 def density_bench(c, base):
@@ -3211,12 +3264,13 @@ def sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
     8 shards against the unsharded flat path, df64 at n = 26 and exact
     double at n = 20 over 4, density at n = 14 over 4 (f32 and df64), a
     mesh-spread tensor-network ring and the pinned exchange budget at n =
-    30. Returns the launches of the sharded f32, fill and df64 paths."""
+    30. Returns the launches of the sharded f32, fill and df64 paths and
+    of 16.1's Pauli readout."""
     import numpy as np
     import torch
     from rocquantum_tpu_torch.compiler.passes import PallasBlock
     from rocquantum_tpu_torch.models import qft_ir
-    from rocquantum_tpu_torch.ops import df64, pairsim
+    from rocquantum_tpu_torch.ops import df64, pairsim, pauli_readout
     from rocquantum_tpu_torch.ops import statevec as sv
     from rocquantum_tpu_torch.parallel import (default_mesh, make_mesh,
                                                sharded)
@@ -3276,7 +3330,12 @@ def sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
     fills = fused_sv.ZERO_LAUNCHES
     flush_counts = sharded.count_collectives()
     flush_bytes = sharded.BYTES_MOVED
+    zero_counts(pauli_readout)
     energy, t_energy = wall(lambda: circ.expval(hamiltonian))
+    readout_launches = pauli_readout.LAUNCHES
+    cells = sum(1 for _ in circ.state.cells())
+    check(readout_launches == cells,
+          f"one readout launch a cell: {readout_launches} for {cells}")
     norm = float(sharded.norm2(circ.state))
     check(len(seen) == passes and set(seen) == {k},
           f"sharded flush: {len(seen)} layer calls for {passes} planned "
@@ -3604,6 +3663,7 @@ def sharded_phase(rq, interpreter, fused_sv, fused_df64, rotate, region_dot,
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
     return {"fused_layer": launches, "fused_layer_init": fills,
             "fused_layer_df64": df_launches,
+            "pauli_readout": readout_launches,
             "errors": {"fused_layer": max(pass_err, dens_err["single"]),
                        "fused_layer_init": fill_err,
                        "fused_layer_df64": max(df_err, dens_err["df64"])}}
@@ -3903,6 +3963,85 @@ def integration_phase(rq, interpreter, fused_sv, fused_df64, rotate,
     return {"integration_launches": launches["qiskit"] + launches["cirq"]
             + launches["cirq_run"] + launches["pennylane"],
             "integration_max_abs_err": held_err}
+
+
+def readout_phase():
+    """Phase 18: the Pauli readout kernel against the plain per-term
+    readout at the benchmark's sizes, timed beside its byte bound (one
+    read of the planes, whatever the kernel's sweeps); the kernels-line
+    fields of the row but its path launches."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.ops import _build, pairsim, pauli_readout
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    pauli_readout.build()
+    for line in _build.BUILD_LOGS.get("pauli_readout", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas pauli_readout: {line.strip()}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1819)
+    row = {"max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None}
+    cases = (("", READOUT_N, torch.float32, True, READOUT_RTOL),
+             ("df64_", READOUT_N, torch.float64, True, DF64_READOUT_RTOL),
+             ("shard_", READOUT_SHARD_N, torch.complex64, False,
+              READOUT_RTOL))
+    for key, n, dtype, real, rtol in cases:
+        if real:
+            re = torch.randn(1 << n, generator=gen, device=dev, dtype=dtype)
+            psi, im = None, None
+        else:
+            psi = torch.randn(1 << n, generator=gen, device=dev, dtype=dtype)
+            re, im = psi.real, psi.imag
+        scale = float(pairsim.norm2_pair(re, im)) ** -0.5
+        (re if psi is None else psi).mul_(scale)
+        terms = [(("Z", q), ("Z", (q + 1) % n)) for q in range(n)] + \
+            [(("X", q),) for q in range(n)]
+        coeffs = [-1.0] * n + [-0.5] * n
+        plain = {"on": False}
+
+        def readout():
+            if plain["on"]:
+                total = torch.zeros((), dtype=torch.float64, device=dev)
+                for t, c in zip(terms, coeffs):
+                    total = total + c * pairsim._string_plain(re, im, t)
+                return total
+            return pauli_readout.expval_terms(re, im, terms, coeffs)
+
+        def run_plain(reps):
+            plain["on"] = True
+            try:
+                return repeat(readout)(reps)
+            finally:
+                plain["on"] = False
+
+        zero_counts(pauli_readout)
+        got, again = readout(), readout()
+        check(pauli_readout.LAUNCHES == 2, "a launch a readout")
+        plain["on"] = True
+        want = readout()
+        plain["on"] = False
+        err = abs(float(got) - float(want)) / float(np.abs(coeffs).sum())
+        check(err <= rtol, f"readout {key or 'f32_'}n={n}: {err:.3e} of "
+              f"sum |c| > {rtol}")
+        check(torch.equal(got, again), f"readout {key}n={n} repeat differs")
+        plain_1, ms_1, ms_2, plain_2 = time_turns(repeat(readout), run_plain,
+                                                  20)
+        p = pauli_readout.plan(n, terms, re.dtype, 1 if real else 2)
+        nbytes = (1 << n) * re.element_size() * (1 if real else 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update({f"{key}ms": min(ms_1, ms_2),
+                    f"{key}plain_ms": min(plain_1, plain_2),
+                    f"{key}bound_ms": bound, f"{key}sweeps": len(p.sweeps)})
+        print(f"readout {key or 'f32_'}n={n}: {len(p.sweeps)} sweeps, kernel "
+              f"{ms_1:.3f} / {ms_2:.3f} ms, plain {plain_1:.1f} / "
+              f"{plain_2:.1f} ms, bound {bound:.3f} ms (one read), "
+              f"{err:.2e} of sum |c|")
+        del re, im, psi
+        torch.cuda.empty_cache()
+    print(f"readout phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 if __name__ == "__main__":

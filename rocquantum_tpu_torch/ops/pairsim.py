@@ -12,7 +12,11 @@ compiled pair program is the exact engine
 ``(2^n,)`` float32 or float64 planes ``(re, im)``; ``im=None`` is a real
 state. Bit tests use strided views (no index arrays), and every reduction
 accumulates in float64. ``collapse_pair`` guards its renormalization with
-the precision's ``config.eps()``.
+the precision's ``config.eps()``. On CUDA planes the Pauli readouts
+(``expval_terms_pair``, ``expval_pauli_string_pair``,
+``expval_pauli_product_z_pair``) launch the hand-written kernel of
+``ops/pauli_readout.py``; their per-term code here is its plain version,
+which CPU planes take.
 
 The planes may carry a leading batch axis, ``(b, 2^n)``: the readouts then
 return one value (or row, or draw set) per element. The ``*_batched``
@@ -35,6 +39,7 @@ from .. import config
 from ..utils import profiling
 from ..utils.cache import BoundedCache
 from . import gates as G
+from . import pauli_readout
 from . import statevec as sv
 from .statevec import num_qubits_of
 
@@ -76,9 +81,32 @@ def norm2_pair(re, im) -> torch.Tensor:
     return _sum64(probs_pair(re, im))
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether the readouts of planes ``x`` run on the Pauli readout
+    kernel (``ops/pauli_readout.py``): CUDA tensors do, the others take the
+    plain per-term code of this module."""
+    return x.device.type == "cuda"
+
+
+def _kernel_terms(re, im, terms, coeffs) -> torch.Tensor:
+    """The Pauli readout kernel over ``terms``, counted as terms it
+    served (utils/profiling ``readout_kernel_terms``)."""
+    profiling.count("readout_kernel_terms", len(terms))
+    return pauli_readout.expval_terms(re, im, terms, coeffs)
+
+
 def expval_pauli_product_z_pair(re, im, qubits: Sequence[int]
                                 ) -> torch.Tensor:
-    """<Z...Z>: probabilities with the sign of the parity of ``qubits``."""
+    """<Z...Z>: probabilities with the sign of the parity of ``qubits``
+    (a repeated qubit counts once)."""
+    profiling.count("readout_terms")
+    if _on_card(re):
+        return _kernel_terms(re, im, ((tuple(("Z", int(q)) for q in qubits)),),
+                             (1.0,))
+    return _z_product_plain(re, im, qubits)
+
+
+def _z_product_plain(re, im, qubits: Sequence[int]) -> torch.Tensor:
     s = probs_pair(re, im)
     for q in sorted(set(int(q) for q in qubits)):
         _, one = _bit_halves(s, q)
@@ -117,12 +145,19 @@ def _apply_pauli(pre, pim, ch: str, q: int):
 
 
 def expval_pauli_string_pair(re, im, ops: Sequence[tuple]) -> torch.Tensor:
-    """<psi| P |psi> for a Pauli string [(char, qubit), ...]: apply P to a
-    copy, then Re<psi|phi> = sum(re*phi_re + im*phi_im)."""
+    """<psi| P |psi> for a Pauli string [(char, qubit), ...]: on the card
+    the Pauli readout kernel; else apply P to a copy, then Re<psi|phi> =
+    sum(re*phi_re + im*phi_im)."""
+    profiling.count("readout_terms")
+    if _on_card(re):
+        return _kernel_terms(re, im, (tuple(ops),), (1.0,))
+    return _string_plain(re, im, ops)
+
+
+def _string_plain(re, im, ops: Sequence[tuple]) -> torch.Tensor:
     if all(ch in ("I", "Z") for ch, _ in ops):
         zs = [q for ch, q in ops if ch == "Z"]
-        return expval_pauli_product_z_pair(re, im, zs) if zs \
-            else norm2_pair(re, im)
+        return _z_product_plain(re, im, zs) if zs else norm2_pair(re, im)
     pre, pim = re, im
     for ch, q in ops:
         if ch != "I":
@@ -138,12 +173,16 @@ def expval_pauli_string_pair(re, im, ops: Sequence[tuple]) -> torch.Tensor:
 def expval_terms_pair(re, im, terms, coeffs) -> torch.Tensor:
     """Sum_k coeffs[k] * <P_k> for PauliOperator-style terms
     [((char, qubit), ...), ...], as a float64 tensor: 0-d, or ``(b,)`` for
-    a batch."""
+    a batch: on the card one launch of the Pauli readout kernel, else a
+    loop over the terms."""
+    profiling.count("readout_terms", min(len(terms), len(coeffs)))
+    if _on_card(re):
+        return _kernel_terms(re, im, terms, coeffs)
     total = torch.zeros(re.shape[:-1], dtype=_F64, device=re.device)
     for term, c in zip(terms, coeffs):
         with profiling.span("rq.expval.term"):
             ev = norm2_pair(re, im) if len(term) == 0 \
-                else expval_pauli_string_pair(re, im, term)
+                else _string_plain(re, im, term)
             total = total + float(c) * ev
     return total
 

@@ -44,10 +44,11 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops import fused_sv, pairsim
+from ..ops import fused_sv, pairsim, pauli_readout
 from ..ops import gates as _g
 from ..ops import statevec as sv
 from ..utils import profiling
+from ..utils.cache import BoundedCache
 from .mesh import BATCH_AXIS, DCN_AXIS, SV_AXIS, Mesh
 
 _F64 = torch.float64
@@ -697,17 +698,59 @@ def _pauli_split(term, L: int):
     return local, flip, phase
 
 
+_SPLITS = BoundedCache()
+
+
+def _kernel_split(terms, coeffs, L: int, shards: int):
+    """(local Pauli strings, their coefficients c * phase(s) a shard, the
+    other (term, c) pairs): a term whose X and Y bits are all local
+    (``_pauli_split``'s flip 0) with a real phase on every shard goes to
+    the Pauli readout kernel, a launch a cell; the others keep the fetch
+    and dot of :func:`_term_partials`. Cached by value."""
+    key = (tuple(tuple((ch, int(q)) for ch, q in t) for t in terms),
+           tuple(float(c) for c in coeffs), L, shards)
+    hit = _SPLITS.get(key)
+    if hit is not None:
+        return hit
+    local_terms, cols, rest = [], [], []
+    for term, c in zip(key[0], key[1]):
+        local, flip, phase = _pauli_split(term, L)
+        ph = [phase(s) for s in range(shards)]
+        if flip or any(p.imag for p in ph):
+            rest.append((term, c))
+            continue
+        local_terms.append(tuple(local))
+        cols.append([c * p.real for p in ph])
+    per_shard = [tuple(col[s] for col in cols) for s in range(shards)]
+    hit = (tuple(local_terms), per_shard, rest)
+    _SPLITS[key] = hit
+    return hit
+
+
 def expval_terms(state: ShardedState, terms, coeffs) -> torch.Tensor:
     """Sum_k coeffs[k] <P_k> for Pauli strings on index bits, float64 (of
-    each element). A term with X or Y on global bits pairs each shard with
-    the shard its flip maps it to (rows fetched from another device count
-    as one collective-permute for the term)."""
+    each element). On the card, the terms with X and Y on local bits only
+    take one Pauli readout kernel launch a cell (:func:`_kernel_split`). A
+    term with X or Y on global bits pairs each shard with the shard its
+    flip maps it to (rows fetched from another device count as one
+    collective-permute for the term)."""
     L = state.n_local
     cells = {(b, s): pair for b, s, pair in state.pairs()}
     partials = {(b, s): torch.zeros(state.rows_per_cell, dtype=_F64,
                                     device=re.device)
                 for (b, s), (re, _) in cells.items()}
-    for term, c in zip(terms, coeffs):
+    pairs = list(zip(terms, coeffs))
+    profiling.count("readout_terms", len(pairs))
+    if pairsim._on_card(cells[(0, 0)][0]):
+        local, per_shard, pairs = _kernel_split(
+            [t for t, _ in pairs], [c for _, c in pairs], L,
+            state.sharding.num_shards)
+        if local:
+            profiling.count("readout_kernel_terms", len(local))
+            for (b, s), (re, im) in cells.items():
+                partials[(b, s)] = partials[(b, s)] + \
+                    pauli_readout.expval_terms(re, im, local, per_shard[s])
+    for term, c in pairs:
         with profiling.span("rq.expval.term"):
             _term_partials(state, cells, partials, term, c)
     return _reduce(state, partials)
@@ -727,7 +770,7 @@ def _term_partials(state: ShardedState, cells, partials, term, c):
     for (b, s), (re, im) in cells.items():
         ph = phase(s)
         if not flip and not ph.imag:
-            v = pairsim.expval_pauli_string_pair(re, im, local) * ph.real
+            v = pairsim._string_plain(re, im, local) * ph.real
         else:
             pre, pim = re, im
             for ch, q in local:

@@ -45,8 +45,10 @@ except ImportError:  # pragma: no cover - older torch
     _HostRange = None
 
 # Counters of work at the program's boundaries, plain integer adds whether
-# or not a profiler runs: the plane passes the readouts issue.
-COUNTERS: Dict[str, int] = {"readout_passes": 0}
+# or not a profiler runs: the readouts' plane passes, the Pauli terms they
+# evaluate, and those of them the Pauli readout kernel served.
+COUNTERS: Dict[str, int] = {"readout_passes": 0, "readout_terms": 0,
+                             "readout_kernel_terms": 0}
 
 # what a span given ``request=NEW`` does: start a new request
 NEW = object()

@@ -1174,3 +1174,166 @@ def test_compile_pair_ir_on_the_card(cuda):
         / np.sqrt(1 << n)
     got = re.cpu().numpy() + 1j * im.cpu().numpy()
     assert np.max(np.abs(got - want)) < 1e-12
+
+
+# -- the Pauli readout kernel ---------------------------------------------------
+
+def _readout_terms(n, seed):
+    """The TFIM ring and random strings of every Pauli, repeated qubits and
+    an empty term among them."""
+    rng = np.random.default_rng(seed)
+    terms = [(("Z", q), ("Z", (q + 1) % n)) for q in range(n)]
+    terms += [(("X", q),) for q in range(n)]
+    for _ in range(24):
+        size = int(rng.integers(1, 6))
+        terms.append(tuple((str(rng.choice(list("IXYZ"))),
+                            int(rng.integers(n))) for _ in range(size)))
+    terms += [(), (("Y", 0), ("Y", n - 1)), (("X", 3), ("Z", 3), ("Y", 3))]
+    return terms, rng.normal(size=len(terms)).tolist()
+
+
+def _plain_readout(monkeypatch, fn):
+    """``fn()`` with the readouts on the plain per-term torch code (on the
+    card too)."""
+    from rocquantum_tpu_torch.ops import pairsim
+    with monkeypatch.context() as m:
+        m.setattr(pairsim, "_on_card", lambda x: False)
+        return fn()
+
+
+def _random_planes(cuda, shape, dtype, real, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    re = torch.randn(shape, generator=g, device=cuda, dtype=torch.float64)
+    im = None if real else torch.randn(shape, generator=g, device=cuda,
+                                       dtype=torch.float64)
+    norm = (re * re + (0 if im is None else im * im)).sum(-1, keepdim=True)
+    re = (re / norm.sqrt()).to(dtype)
+    return re, None if im is None else (im / norm.sqrt()).to(dtype)
+
+
+READOUT_CASES = [(20, torch.float32, True, None), (22, torch.float32, False, 3),
+                 (26, torch.float32, True, None), (24, torch.float32, False, None),
+                 (20, torch.float64, True, 2), (22, torch.float64, False, None),
+                 (26, torch.float64, True, None), (21, torch.float64, False, 3)]
+
+
+@pytest.mark.parametrize("n,dtype,real,batch", READOUT_CASES)
+def test_pauli_readout_kernel_matches_plain(cuda, monkeypatch, n, dtype,
+                                            real, batch):
+    """The kernel against the plain per-term readout on the same planes:
+    within 1e-7 (float32) / 1e-13 (float64) of sum |c|, and the same bits
+    on a second run."""
+    from rocquantum_tpu_torch.ops import pairsim, pauli_readout
+    shape = (1 << n,) if batch is None else (batch, 1 << n)
+    re, im = _random_planes(cuda, shape, dtype, real, n)
+    terms, coeffs = _readout_terms(n, n)
+    before = pauli_readout.LAUNCHES
+    got = pairsim.expval_terms_pair(re, im, terms, coeffs)
+    again = pairsim.expval_terms_pair(re, im, terms, coeffs)
+    assert pauli_readout.LAUNCHES - before == 2
+    want = _plain_readout(monkeypatch, lambda: pairsim.expval_terms_pair(
+        re, im, terms, coeffs))
+    assert got.shape == want.shape and got.dtype == torch.float64
+    tol = (1e-7 if dtype == torch.float32 else 1e-13) * np.abs(coeffs).sum()
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_pauli_readout_kernel_reads_strided_views(cuda, monkeypatch, dtype):
+    """The ``.real`` / ``.imag`` views of a complex batch (element stride
+    2), as ``Circuit.expval`` hands a complex batch, and one string
+    through ``expval_pauli_string_pair``."""
+    from rocquantum_tpu_torch.ops import pairsim
+    n = 21
+    real_dtype = torch.float32 if dtype == torch.complex64 else torch.float64
+    re, im = _random_planes(cuda, (2, 1 << n), real_dtype, False, 5)
+    psi = torch.complex(re, im)
+    assert psi.real.stride(-1) == 2
+    terms, coeffs = _readout_terms(n, 7)
+    got = pairsim.expval_terms_pair(psi.real, psi.imag, terms, coeffs)
+    want = _plain_readout(monkeypatch, lambda: pairsim.expval_terms_pair(
+        re, im, terms, coeffs))
+    tol = (1e-7 if dtype == torch.complex64 else 1e-13) * np.abs(coeffs).sum()
+    assert float((got - want).abs().max()) <= tol
+    # one strided plane alone: a real state read element by element
+    got = pairsim.expval_terms_pair(psi.real, None, terms, coeffs)
+    want = _plain_readout(monkeypatch, lambda: pairsim.expval_terms_pair(
+        re, None, terms, coeffs))
+    assert float((got - want).abs().max()) <= tol
+    one = [("Y", 2), ("X", 19), ("Z", 4)]
+    got = pairsim.expval_pauli_string_pair(psi.real, psi.imag, one)
+    want = _plain_readout(monkeypatch, lambda: pairsim.expval_pauli_string_pair(
+        re, im, one))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("real", [True, False])
+def test_sharded_readout_on_the_card_uses_the_kernel(cuda, monkeypatch, real):
+    """4 virtual shards of the card (n = 22): the terms with X and Y on
+    local bits take a launch a shard with the shard's +-1 phase; X on the
+    global bits keeps the fetch and dot; the sum is the plain readout's of
+    the unsharded state."""
+    from rocquantum_tpu_torch.ops import pairsim, pauli_readout
+    from rocquantum_tpu_torch.parallel import make_mesh, sharded
+    from rocquantum_tpu_torch.utils import profiling
+    n = 22
+    re, im = _random_planes(cuda, (1 << n,), torch.float32, real, 3)
+    state = sharded.shard_state((re, im), make_mesh(4, devices=[cuda] * 4))
+    terms = [(("Z", q), ("Z", (q + 1) % n)) for q in range(n)]
+    terms += [(("X", q),) for q in range(n)] + [(("Y", 5), ("Z", 21))]
+    coeffs = np.random.default_rng(2).normal(size=len(terms)).tolist()
+    before = pauli_readout.LAUNCHES
+    kernel_terms = profiling.COUNTERS["readout_kernel_terms"]
+    got = sharded.expval_terms(state, terms, coeffs)
+    assert pauli_readout.LAUNCHES - before == 4
+    assert profiling.COUNTERS["readout_kernel_terms"] - kernel_terms == \
+        len(terms) - 2
+    want = _plain_readout(monkeypatch, lambda: pairsim.expval_terms_pair(
+        re, im, terms, coeffs))
+    assert abs(float(got) - float(want)) <= 1e-7 * np.abs(coeffs).sum()
+
+
+def test_pauli_readout_refuses_what_it_cannot_take(cuda):
+    """A launch the kernel refuses raises (rows beyond the grid), as do
+    planes of another dtype or rank; nothing falls back."""
+    from rocquantum_tpu_torch.ops import pauli_readout
+    terms, coeffs = [(("X", 0),)], [1.0]
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        pauli_readout.expval_terms(torch.ones(65536, 2, device=cuda), None,
+                                   terms, coeffs)
+    with pytest.raises(ValueError):
+        pauli_readout.expval_terms(torch.ones(4, dtype=torch.float16,
+                                              device=cuda), None, terms,
+                                   coeffs)
+    with pytest.raises(ValueError):
+        pauli_readout.expval_terms(torch.ones(2, 2, 4, device=cuda), None,
+                                   terms, coeffs)
+
+
+@pytest.mark.parametrize("precision,tol", [("single", 1e-6), ("df64", 1e-12)])
+def test_circuit_expval_launches_the_pauli_readout_kernel(cuda, precision,
+                                                          tol):
+    """The main path: ``Circuit.expval`` in single precision and under
+    df64 is one launch, against the CPU's plain readout."""
+    from rocquantum_tpu_torch.ops import pauli_readout
+    n = 16
+    ir = hardware_efficient_ansatz_ir(n, 2)
+    theta = np.random.default_rng(4).normal(size=ir.num_params)
+    op = rq.PauliOperator({"Z0 Z5": -1.0, "X3": 0.5, "Y2 Y7": 0.25,
+                           "X1 Z4 Y15": 0.125})
+    old = "df64" if rq.df64_enabled() else rq.get_precision()
+    rq.set_precision(precision)
+    try:
+        values = {}
+        for dev in (cuda, torch.device("cpu")):
+            c = rq.Circuit(n, rq.Simulator(seed=9, device=dev))
+            for o in ir.ops:
+                c._enqueue(o.name, o.targets, o.controls,
+                           [float(theta[p.index]) for p in o.params])
+            before = pauli_readout.LAUNCHES
+            values[dev.type] = c.expval(op)
+            assert pauli_readout.LAUNCHES - before == (dev.type == "cuda")
+        assert abs(values["cuda"] - values["cpu"]) < tol
+    finally:
+        rq.set_precision(old)
