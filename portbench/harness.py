@@ -9,6 +9,16 @@ under ``circuits/`` and ``observables/``; the mix's request kind, with
 its part of the comparison, under ``requests/``; the cell's limits under
 ``limits/``; each per-layer metric's reader under ``metrics/``. Adding a
 cell adds files and touches none.
+
+A request kind either reads a state the engine made: ``answer(system,
+handle, cell, traffic)`` after ``engine(theta)``, and ``compare(cell,
+traffic, checked)`` over ``(answer, reference state)`` pairs, with the
+last request's state held to the reference as ``state_err``. Or it owns
+its whole request: ``request(system, theta, cell, traffic) -> answer``
+through a method the program and the control both have (``gradient``),
+and ``compare(cell, traffic, checked, dtype, devices)`` over ``(answer,
+theta)`` pairs, working its reference out itself in ``dtype`` on
+``devices``; no state is held and no ``state_err`` is read.
 """
 
 import contextlib
@@ -21,6 +31,7 @@ import numpy as np
 import torch
 
 from portbench import trace, workload
+from portbench.reference import adjoint
 from portbench.reference import statevector as ref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -69,8 +80,10 @@ class Cell:
                              f"one client, not {loop}")
         self.kind = workload.load_module("requests",
                                          self.traffic["request"], bench_dir)
+        self.owns_request = hasattr(self.kind, "request")
         self.limits = workload.load_json("limits", name, bench_dir)
-        want = {"state_err", *self.kind.NUMBERS}
+        want = set(self.kind.NUMBERS) | (
+            set() if self.owns_request else {"state_err"})
         if set(self.limits) != want:
             raise ValueError(f"{name}: limits for {sorted(self.limits)}, "
                              f"the comparison reads {sorted(want)}")
@@ -116,7 +129,9 @@ class Devices:
 class Program:
     """The system under test: the port's ``compile_program`` of the cell's
     circuit, each request ``run(theta)`` and then the request kind's
-    readout (``expval``, ``sample``) on the handle it returns."""
+    readout (``expval``, ``sample``) on the handle it returns; or, for a
+    kind that owns its request, the port's ``adjoint_grad`` on the kernel
+    it traces (``gradient``), with no program compiled."""
 
     def __init__(self, cell, devices, theta0, seed):
         import rocquantum_tpu_torch as rq
@@ -138,10 +153,12 @@ class Program:
         if cfg.get("mesh"):
             mesh = (default_mesh() if devices.cuda
                     else make_mesh(len(devices.list), devices=devices.list))
+        self.kernel, self.n = kernel, cell.n
         self.sim = rq.Simulator(seed=seed & (2**63 - 1),
                                 device=devices.list[0])
-        ir = rq.trace_kernel(kernel, cell.n, *theta0)
-        self.prog = rq.compile_program(ir, self.sim, mesh=mesh)
+        if not cell.owns_request:
+            ir = rq.trace_kernel(kernel, cell.n, *theta0)
+            self.prog = rq.compile_program(ir, self.sim, mesh=mesh)
         self.operators = {}
 
     def operator(self, terms):
@@ -163,6 +180,12 @@ class Program:
 
     def sample(self, handle, qubits, shots):
         return handle.sample(qubits, shots)
+
+    def gradient(self, theta, terms):
+        """``(energy, dE/dtheta)`` by the port's public adjoint gradient."""
+        return self.rq.adjoint_grad(self.kernel, self.n, self.sim,
+                                    theta, self.operator(terms),
+                                    return_value=True)
 
     def counters(self):
         return {"fused_sv": self.fused_sv.LAUNCHES,
@@ -206,6 +229,10 @@ class Control:
         x = ref.sample(state, shots, self.gen)
         return sum(((x >> q) & 1) << k for k, q in enumerate(qubits))
 
+    def gradient(self, theta, terms):
+        return adjoint.gradient(self.cell.n, self.cell.gates, theta, terms,
+                                self.dtype, self.devices.list)
+
     def counters(self):
         return {}
 
@@ -216,7 +243,10 @@ class Control:
 
 def make_request(sut, cell, spans):
     """``request(theta) -> (answer, handle)``: the engine, then the mix's
-    request kind."""
+    request kind; or the kind's own ``request``, which holds no handle."""
+    if cell.owns_request:
+        return lambda theta: (cell.kind.request(sut, theta, cell,
+                                                cell.traffic), None)
     answer = cell.kind.answer
 
     def request(theta):
@@ -230,12 +260,18 @@ def make_request(sut, cell, spans):
 
 def judge(cell, devices, thetas, answers, handle, read_back, seed, failed):
     """The comparison: the checked requests' answers (by the request
-    kind's ``compare``) and the held state of the last one against the
-    reference in float64. Returns (correct, {number: (value, limit)})."""
+    kind's ``compare``) and, unless the kind owns its request, the held
+    state of the last one against the reference in float64. Returns
+    (correct, {number: (value, limit)})."""
     ref.full_precision()
     dtype = getattr(torch, PRECISIONS[cell.config["precision"]][1])
     picked = workload.checked_requests(len(answers), cell.config, seed)
     state_err = []
+
+    def angles():
+        for i in picked:
+            yield answers[i], thetas[i]
+            devices.free()
 
     def checked():
         for i in picked:
@@ -248,8 +284,12 @@ def judge(cell, devices, thetas, answers, handle, read_back, seed, failed):
             del state
             devices.free()
 
-    checks = dict(cell.kind.compare(cell, cell.traffic, checked()))
-    checks["state_err"] = state_err[0] if state_err else np.inf
+    if cell.owns_request:
+        checks = dict(cell.kind.compare(cell, cell.traffic, angles(), dtype,
+                                        devices.list))
+    else:
+        checks = dict(cell.kind.compare(cell, cell.traffic, checked()))
+        checks["state_err"] = state_err[0] if state_err else np.inf
     out = {k: (float(checks.get(k, np.inf)), float(lim))
            for k, lim in cell.limits.items()}
     correct = (failed == 0 and bool(answers)

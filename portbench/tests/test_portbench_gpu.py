@@ -15,7 +15,8 @@ sys.path.insert(0, smallcopy.ROOT)
 
 from portbench import harness  # noqa: E402
 
-CELLS = ["ring29_f32.energy", "ring29_f32.shots", "ring29_df64.energy"]
+CELLS = ["ring29_f32.energy", "ring29_f32.shots", "ring29_df64.energy",
+         "ring26_f32.grad"]
 
 
 def card():

@@ -5,6 +5,7 @@ any file already there."""
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -16,7 +17,7 @@ import smallcopy
 
 sys.path.insert(0, smallcopy.ROOT)
 
-from portbench import harness  # noqa: E402
+from portbench import harness, trace  # noqa: E402
 
 
 def bench():
@@ -29,9 +30,13 @@ def test_every_cell_resolves_its_files(cell):
     c = harness.Cell(cell)
     assert c.config["name"] == c.entry["config"]
     assert c.kind.NUMBERS == {"energy": ("energy_err",),
-                              "shots": ("xeb_dev", "dup_z")}[
+                              "shots": ("xeb_dev", "dup_z"),
+                              "grad": ("energy_err", "grad_err")}[
                                   c.traffic["request"]]
-    assert set(c.limits) == {"state_err", *c.kind.NUMBERS}
+    # a kind that owns its request holds no state: no state_err
+    assert c.owns_request == (c.traffic["request"] == "grad")
+    held = set() if c.owns_request else {"state_err"}
+    assert set(c.limits) == held | set(c.kind.NUMBERS)
     assert c.chips == c.config["chips"]
     assert c.n == c.config["num_qubits"] and c.gates and c.terms
     for m in c.per_layer:
@@ -164,12 +169,87 @@ def test_a_loop_the_harness_does_not_drive_is_refused(tmp_path, loop,
         harness.Cell("ring29_f32.other", bench_dir)
 
 
-def test_limits_must_name_the_numbers_compared(tmp_path):
+@pytest.mark.parametrize("cell, limits", [
+    ("ring29_f32.energy", {"state_err": 1e-4}),
+    ("ring29_f32.energy", {"energy_err": 1e-6}),
+    ("ring26_f32.grad", {"energy_err": 1e-6, "grad_err": 1e-6,
+                         "state_err": 1e-4}),
+    ("ring26_f32.grad", {"grad_err": 1e-6})])
+def test_limits_must_name_the_numbers_compared(tmp_path, cell, limits):
     bench_dir = smallcopy.make(tmp_path)
-    smallcopy.write_json(bench_dir, "limits", "ring29_f32.energy",
-                         {"state_err": 1e-4})
-    with pytest.raises(ValueError, match="energy_err"):
-        harness.Cell("ring29_f32.energy", bench_dir)
+    smallcopy.write_json(bench_dir, "limits", cell, limits)
+    with pytest.raises(ValueError, match="the comparison reads"):
+        harness.Cell(cell, bench_dir)
+
+
+def _is_plain_torch(name):
+    reader = harness.Cell("ring29_f32.energy").reader(
+        "plain_torch_device_ms")
+    return reader.__globals__["is_plain_torch"](name)
+
+
+@pytest.mark.parametrize("name, plain", [
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<double>"
+     " >(at::native::ReduceOp<double>)", True),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "CUDAFunctor_add<float>, std::array<char*, 3ul> >(int)", True),
+    ("void at::native::(anonymous namespace)::searchsorted_cuda_kernel<"
+     "double, int>(int*, double const*)", True),
+    ("void at_cuda_detail::cub::DeviceScanKernel<at_cuda_detail::cub::"
+     "DeviceScanPolicy<double, std::plus<double> > >(double const*)", True),
+    ("sm80_xmma_gemm_cf32cf32_f32f32_cf32_tn_n_tilesize64x32x8_stage3_"
+     "warpsize2x2x1_ffma_aligna8_alignc8_execute_kernel__5x_cublas", True),
+    ("Memcpy DtoH (Device -> Pinned)", True),
+    ("Memset (Device)", True),
+    ("void (anonymous namespace)::fused_pass_kernel<false, 7, 256, 1>("
+     "float*, float*, (anonymous namespace)::PassParams)", False),
+    ("void (anonymous namespace)::pauli_sweep_kernel<float, 1, 4>("
+     "(anonymous namespace)::Args)", False),
+    ("(anonymous namespace)::init_zero_kernel(float4*, unsigned long)",
+     False),
+    # a kernel the program has not written yet, templated on ATen's types
+    ("void (anonymous namespace)::m_sums_kernel<at::Half>(at::Half "
+     "const*, double*)", False),
+    ("void rocq::correlation_kernel(float const*, double*)", False)])
+def test_plain_torch_is_told_by_the_library_not_by_the_port(name, plain):
+    """An operation is PyTorch's or the runtime's by its namespace or
+    name; the program's kernels, those it adds later too, are not."""
+    assert _is_plain_torch(name) is plain
+
+
+def test_no_kernel_of_the_port_reads_as_plain_torch():
+    """Whatever ``__global__`` functions ``csrc/*.cu`` holds, under the
+    names the profiler gives their launches."""
+    csrc = os.path.join(smallcopy.ROOT, "rocquantum_tpu_torch", "csrc")
+    found = set()
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as f:
+                found |= set(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                    r"\s*)?(\w+)\s*\(", f.read()))
+    assert found
+    for k in found:
+        for shown in (f"void (anonymous namespace)::{k}<float, 1>(float*)",
+                      f"(anonymous namespace)::{k}(float4*, unsigned long)",
+                      f"void {k}(double const*, long long, double*)"):
+            assert not _is_plain_torch(shown), shown
+
+
+def test_plain_torch_reader_leaves_out_the_port_kernels():
+    tl = trace.Timeline.__new__(trace.Timeline)
+    tl.start, tl.end = 1.0, 3.0
+    tl.device_ops = {0: [
+        ("void (anonymous namespace)::fused_pass_kernel<false, 7>", 1.0, 1.5),
+        ("void (anonymous namespace)::pauli_sweep_kernel<float, 1>", 1.5,
+         1.6),
+        ("void at::native::reduce_kernel<512, 1>", 1.6, 1.85),
+        ("Memcpy DtoH (Device -> Pageable)", 1.9, 2.0),
+        ("void at::native::vectorized_elementwise_kernel<4>", 2.9, 3.4)]}
+    rec = trace.Records({}, {}, [], 5, {}, {}, tl, 1)
+    read = harness.Cell("ring29_f32.energy").reader("plain_torch_device_ms")
+    assert read(rec) == pytest.approx(1e3 * (0.25 + 0.1 + 0.1) / 5)
+    assert read(trace.Records({}, {}, [], 5, {}, {}, None, 1)) is None
 
 
 # a CPU run of a cell whose per-layer reader loads a module named jax,
