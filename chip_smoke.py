@@ -164,6 +164,12 @@ Phases:
      its byte bound (one read of the planes, fixed by the function and
      the card, not by the kernel's sweeps); ``python3 -c "import
      chip_smoke; chip_smoke.readout_phase()"`` runs it alone.
+ 19. The f32 kernel's dense two-qubit case (U4, compiled only into
+     fused_pass_dense_kernel) at n = 30: the passes of a Quantum Volume
+     circuit's plan (30 layers of Haar SU(4)s), the first three against
+     the plain version within 1e-5 of max|amp|, the plan timed per pass
+     beside a complex pass's byte bound; ``python3 -c "import chip_smoke;
+     chip_smoke.dense2q_phase()"`` runs it alone.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
 14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
@@ -759,6 +765,7 @@ def main():
                                 region_dot, requests, dev)
     readout_paths["sharded_launches"] = shard["pauli_readout"]
     readout = {**readout_phase(), **readout_paths}
+    dense2q = dense2q_phase()
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -783,6 +790,7 @@ def main():
         "sharded_launches": shard["fused_layer"],
         "sharded_max_abs_err": shard["errors"]["fused_layer"],
         **plugins,
+        **dense2q,
     }, {
         "name": "fused_layer_init",
         "route": "cuda",
@@ -4042,6 +4050,113 @@ def readout_phase():
         torch.cuda.empty_cache()
     print(f"readout phase: {time.perf_counter() - t_phase:.1f} s")
     return row
+
+
+DENSE2Q_N = 30
+DENSE2Q_LAYERS = 30
+
+
+def dense2q_phase():
+    """Phase 19: the f32 kernel's dense two-qubit case (U4 records, run by
+    fused_pass_dense_kernel) on re+im planes at n = 30: the passes of a
+    Quantum Volume circuit's plan (30 layers of Haar SU(4)s on permuted
+    pairs), the first three each held to the plain version, then the
+    whole plan timed per pass beside the byte bound of a complex pass and
+    its FP32 instructions (16 an amplitude a U4); the fields of the
+    kernels line's fused_layer row."""
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.compiler.ir import GateOp
+    from rocquantum_tpu_torch.ops import _build, fused_sv
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    fused_sv.build()
+    for line in _build.BUILD_LOGS.get("fused_sv", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas fused_sv: {line.strip()}")
+    n = DENSE2Q_N
+    rng = np.random.default_rng(1811)
+    ops = []
+    for _ in range(DENSE2Q_LAYERS):
+        perm = rng.permutation(n)
+        z = rng.normal(size=(n // 2, 4, 4)) + 1j * rng.normal(
+            size=(n // 2, 4, 4))
+        q, r = np.linalg.qr(z)
+        d = np.diagonal(r, axis1=1, axis2=2)
+        for w, u in enumerate(q * (d / np.abs(d))[:, None, :]):
+            ops.append(GateOp("UNITARY", (int(perm[2 * w]),
+                                          int(perm[2 * w + 1])), (), (), u))
+    (block,) = interpreter.plan_items(ops, n)
+    kinds, supports, gm, _, dm = interpreter.pallas_block_specs_dense(
+        block, None)
+    plan = interpreter.kernel_plan(n, kinds, supports,
+                                   complex_carry=True)
+    passes = []
+    for item in plan:
+        idx = list(item.gate_idx)
+        passes.append((tuple((kinds[i],) + tuple(p)
+                             for i, p in zip(idx, item.positions)),
+                       gm[idx], dm[idx], item.pair_bits))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1811)
+    re = torch.randn(1 << n, generator=gen, device=dev)
+    im = torch.randn(1 << n, generator=gen, device=dev)
+    scale = float((re.double().square().sum()
+                   + im.double().square().sum()) ** -0.5)
+    re.mul_(scale)
+    im.mul_(scale)
+    worst = 0.0
+    for specs, g, d, pairs in passes[:3]:
+        want = fused_sv.apply_fused_layer_reference(re, im, specs, g,
+                                                    dense_mats=d)
+        got = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, g,
+                                         pair_bits=pairs, dense_mats=d)
+        top = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst = max(worst, err / top)
+        check(err <= 1e-5 * top, f"dense pass: {err:.3e} > 1e-5 of "
+              f"max|amp| {top:.3e}")
+        del want, got
+        torch.cuda.empty_cache()
+    plain = {"specs": passes[0]}
+
+    def run_all(reps):
+        for _ in range(reps):
+            for specs, g, d, pairs in passes:
+                fused_sv.apply_fused_layer(re, im, specs, g,
+                                           pair_bits=pairs, dense_mats=d)
+        return reps * len(passes)
+
+    def run_plain(reps):
+        specs, g, d, _ = plain["specs"]
+        for _ in range(reps):
+            out = fused_sv.apply_fused_layer_reference(re, im, specs, g,
+                                                       dense_mats=d)
+            del out
+        return reps
+
+    zero_counts(fused_sv)
+    plain_1, ms_1, ms_2, plain_2 = time_turns(run_all, run_plain, 1)
+    launches = fused_sv.LAUNCHES
+    byte_ms = (1 << n) * 4 * 2 * 2 / HBM_BYTES_PER_S * 1e3
+    op_ms = (1 << n) * 16 * len(ops) / len(passes) / FP32_INSTR_PER_S * 1e3
+    swaps = sum(launch.swaps for specs, *_ in passes
+                for launch in fused_sv.pass_schedule(
+                    n, fused_sv._normalize_specs(specs), True))
+    print(f"dense2q n={n}: {len(ops)} SU(4)s in {len(passes)} passes "
+          f"({swaps} exchanges), kernel {ms_1:.3f} / {ms_2:.3f} ms a pass, "
+          f"plain {plain_1:.1f} / {plain_2:.1f} ms a pass, bound "
+          f"{byte_ms:.3f} ms (bytes; FP32 {op_ms:.3f}), {worst:.2e} of "
+          f"max|amp|, {launches} launches timed")
+    print(f"dense2q phase: {time.perf_counter() - t_phase:.1f} s")
+    del re, im
+    torch.cuda.empty_cache()
+    return {"dense2q_ms": min(ms_1, ms_2),
+            "dense2q_plain_ms": min(plain_1, plain_2),
+            "dense2q_bound_ms": max(byte_ms, op_ms),
+            "dense2q_passes": len(passes),
+            "dense2q_max_abs_err": worst}
 
 
 if __name__ == "__main__":

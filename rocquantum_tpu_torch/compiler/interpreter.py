@@ -62,7 +62,7 @@ from ..utils.cache import BoundedCache
 from .ir import CircuitIR, GateOp, ParamRef
 from .passes import (DiagBlock, FusedBlock, PallasBlock, consolidate_high,
                      consolidate_low, fuse_diagonals, fuse_pallas_runs,
-                     is_diagonal, plan_fusion)
+                     is_dense2q, is_diagonal, plan_fusion)
 from .sharded_schedule import PERMUTE_BITS, SWAP_BITS, permutation_of
 
 # Smallest state the flush routes through the fused kernel. The JAX package
@@ -243,12 +243,19 @@ def _block_matrices(block: PallasBlock, params, exact_real: bool = False):
     each gate's 2x2 as a host complex128 matrix: kind "U" (dense 1q
     matrix), "CNOT" (control, target), "CU" (controlled dense 1q) or "D2" —
     a two-qubit diagonal given as the 2x2 of diagonal entries d[bit_a,
-    bit_b]. ``exact_real`` selects the double-precision realness rule
-    (:func:`_real_flag`)."""
+    bit_b] — or its 4x4 for kind "U4" (dense 2q matrix on (targets[0],
+    targets[1]), targets[0] the low bit of its index; never real, so a
+    block with one runs on the complex carry). ``exact_real`` selects the
+    double-precision realness rule (:func:`_real_flag`)."""
     mats, kinds, supports, real_flags = [], [], [], []
     for op in block.ops:
         base, controls, targets = _split_op(op)
-        if base == "D2M":
+        if is_dense2q(op):
+            kinds.append("U4")
+            supports.append((targets[0], targets[1]))
+            mats.append(_base_matrix(op, params))
+            real_flags.append(False)
+        elif base == "D2M":
             m = np.asarray(op.matrix, np.complex128)
             if op.is_adjoint:
                 m = np.conj(m)
@@ -301,9 +308,27 @@ def _block_matrices(block: PallasBlock, params, exact_real: bool = False):
 def pallas_block_specs(block: PallasBlock, params):
     """(kinds, supports, gate_mats, real_flags) for a PallasBlock's ops
     (see :func:`_block_matrices`); ``gate_mats`` is a host float32
-    (K, 2, 2, 2) array [k, row, col, re/im]."""
+    (K, 2, 2, 2) array [k, row, col, re/im]. A block with U4 gates needs
+    :func:`pallas_block_specs_dense`."""
+    return pallas_block_specs_dense(block, params)[:4]
+
+
+def pallas_block_specs_dense(block: PallasBlock, params):
+    """:func:`pallas_block_specs` and ``dense_mats``: the U4 gates' 4x4
+    matrices as a host float32 (K, 4, 4, 2) array (other rows zero, their
+    ``gate_mats`` rows zero), or None when the block has none."""
     kinds, supports, mats, real_flags = _block_matrices(block, params)
-    return kinds, supports, np.stack([_pack(m) for m in mats]), real_flags
+    if "U4" not in kinds:
+        return (kinds, supports, np.stack([_pack(m) for m in mats]),
+                real_flags, None)
+    gm = np.zeros((len(kinds), 2, 2, 2), np.float32)
+    dm = np.zeros((len(kinds), 4, 4, 2), np.float32)
+    for k, (kind, m) in enumerate(zip(kinds, mats)):
+        if kind == "U4":
+            dm[k] = _pack(m)
+        else:
+            gm[k] = _pack(m)
+    return kinds, supports, gm, real_flags, dm
 
 
 def pallas_block_specs_df64(block: PallasBlock, params):
@@ -336,6 +361,8 @@ def _classify_spec(op: GateOp):
     twin of :func:`pallas_block_specs`'s branch order without building any
     matrix (parameter values never change a plan)."""
     base, controls, targets = _split_op(op)
+    if is_dense2q(op):
+        return "U4", (targets[0], targets[1])
     if base == "D2M":
         return "D2", (targets[0], targets[1])
     if base == "X" and len(controls) == 1 and op.matrix is None:
@@ -390,14 +417,15 @@ def block_pass_count(block: PallasBlock, n: int, kernel=fused_sv) -> int:
 
 
 def _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
-                      num_qubits: int, device=None):
+                      num_qubits: int, device=None, dense_mats=None):
     """Run prepared gate specs through the fused kernel in planned passes.
     ``im=None`` is the real plane (all-real gates only); ``re=None`` starts
     the first pass from |0...0> on ``device``."""
     plan = kernel_plan(num_qubits, kinds, supports,
                        complex_carry=im is not None)
     return relabel.execute_plan(re, im, plan, gm, num_qubits, kinds=kinds,
-                                real_flags=real_flags, device=device)
+                                real_flags=real_flags, device=device,
+                                dense_mats=dense_mats)
 
 
 def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
@@ -405,14 +433,19 @@ def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
     """Run one PallasBlock on a (re, im) float32 state. A complex gate
     entering a real carry materializes the imaginary plane first."""
     with profiling.span("rq.run.gates"):
-        kinds, supports, gm, real_flags = pallas_block_specs(block, params)
+        kinds, supports, gm, real_flags, dm = pallas_block_specs_dense(
+            block, params)
+    if dm is not None:
+        dense = kinds.count("U4")
+        profiling.count("dense2q_gates", dense)
+        profiling.count("dense2q_kernel_gates", dense)
     if not all(real_flags):
         if re is None:
             re = init_real(num_qubits, device)
         if im is None:
             im = torch.zeros_like(re)
     return _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
-                             num_qubits, device=device)
+                             num_qubits, device=device, dense_mats=dm)
 
 
 def _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
@@ -475,8 +508,8 @@ def execute_df64(planes, ops: Sequence, params=None, fuse: bool = True,
     ``im_hi = im_lo = None`` declares it real (2-plane kernel passes while
     every gate is real). Returns planes with the same convention."""
     n = sv.num_qubits_of(planes[0])
-    return run_items_df64(planes, plan_items(ops, n, fuse, max_fuse), params,
-                          n)
+    return run_items_df64(planes, plan_items(ops, n, fuse, max_fuse,
+                                             dense2q=False), params, n)
 
 
 def run_ops_f64(re, im, ops: Sequence, params=None):
@@ -556,12 +589,13 @@ def init_real64(n: int, device) -> torch.Tensor:
 def plan_items(ops: Sequence, n: int, fuse: bool = True,
                max_fuse: int = 2, every_run: bool = False,
                kernel: bool = True, low_width: int = 0,
-               high_width: int = 0) -> list:
+               high_width: int = 0, dense2q: bool = True) -> list:
     """The structure-only plan of a gate list: PallasBlocks for the fused
-    kernel (``kernel`` and n >= KERNEL_MIN_QUBITS), then DiagBlocks and
-    FusedBlocks, then (widths > 0) the runs on the lowest ``low_width`` and
-    the highest ``high_width`` qubits merged into dense blocks
-    (passes.consolidate_low/high).
+    kernel (``kernel`` and n >= KERNEL_MIN_QUBITS; dense two-qubit matrices
+    among them unless ``dense2q`` is false, as the df64 kernel needs),
+    then DiagBlocks and FusedBlocks, then (widths > 0) the runs on the
+    lowest ``low_width`` and the highest ``high_width`` qubits merged into
+    dense blocks (passes.consolidate_low/high).
 
     A run of kernel-eligible gates becomes a block as the JAX package's
     flush decides it (at least 6 gates, out-of-window gates split off when
@@ -572,10 +606,11 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
     if kernel and n >= KERNEL_MIN_QUBITS:
         if every_run:
             items = fuse_pallas_runs(items, n - 1, min_gates=1,
-                                     num_qubits=n)
+                                     num_qubits=n, dense2q=dense2q)
         else:
             items = fuse_pallas_runs(items, n - 1, num_qubits=n,
-                                     relabel_reach=fused_sv.window_bits(n))
+                                     relabel_reach=fused_sv.window_bits(n),
+                                     dense2q=dense2q)
     if fuse:
         items = fuse_diagonals(items)
         items = plan_fusion(items, max_fuse=max_fuse)
@@ -589,6 +624,9 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
 def _apply_item(state: torch.Tensor, item, params) -> torch.Tensor:
     """Apply one planned item other than a PallasBlock to a complex
     state."""
+    dense = sum(map(is_dense2q, _members(item)))
+    if dense:
+        profiling.count("dense2q_gates", dense)
     if isinstance(item, DiagBlock):
         return _apply_diag_block(state, item, params)
     if isinstance(item, FusedBlock):
@@ -729,6 +767,14 @@ def parametrize(ops: Sequence[GateOp]):
 _PLAN_CACHE = BoundedCache()
 
 
+def _plan_miss(ops, n, *args, **kwargs):
+    """:func:`plan_items` for a plan the cache did not hold: the host span
+    ``rq.plan`` and one ``plan_misses``."""
+    with profiling.span("rq.plan"):
+        profiling.count("plan_misses")
+        return plan_items(ops, n, *args, **kwargs)
+
+
 def _plan_key(ir: CircuitIR, *extra):
     """Structural cache key of an IR plus the concrete parameter values the
     plan bakes in."""
@@ -749,7 +795,7 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     if cached is not None:
         return cached
     n = ir.num_qubits
-    items = plan_items(list(ir.ops), n, fuse, max_fuse, every_run)
+    items = _plan_miss(list(ir.ops), n, fuse, max_fuse, every_run)
 
     def run(pair, params, device=None):
         re, im = pair
@@ -819,7 +865,7 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
         if state.dtype != torch.complex64:
             return run_ops_exact(state, ops, params)
         if not plan:
-            plan.append(plan_items(ops, n, fuse, max_fuse, kernel=fuse,
+            plan.append(_plan_miss(ops, n, fuse, max_fuse, kernel=fuse,
                                    low_width=low_width,
                                    high_width=high_width))
         return run_flat(state, plan[0], params)
@@ -850,7 +896,8 @@ def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
     n = ir.num_qubits
     if sharding is not None:
         n_loc = n - sharding.n_global
-        items = plan_items(list(ir.ops), n_loc, fuse, max_fuse)
+        items = plan_items(list(ir.ops), n_loc, fuse, max_fuse,
+                           dense2q=False)
 
         def run_sharded_df64(state, params):
             sharded.check_sharding(sharding, state)
@@ -860,7 +907,7 @@ def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
 
         _PLAN_CACHE[key] = run_sharded_df64
         return run_sharded_df64
-    items = plan_items(list(ir.ops), n, fuse, max_fuse)
+    items = plan_items(list(ir.ops), n, fuse, max_fuse, dense2q=False)
 
     def run(pair, params):
         planes = dfm.state_from_pair_f64(*pair)

@@ -5,7 +5,8 @@
   order, each with its ``is_adjoint`` flag toggled (the reference
   AdjointGenerationPass, AdjointGeneration.cpp:26-110).
 - :func:`fuse_pallas_runs` — collect runs of kernel-eligible gates (1q, CNOT,
-  controlled 1q, two-qubit diagonals) into :class:`PallasBlock` s that the
+  controlled 1q, two-qubit diagonals and, where the kernel takes them,
+  dense two-qubit matrices) into :class:`PallasBlock` s that the
   fused-layer kernel (ops/fused_sv.py) applies in few passes.
 - :func:`fuse_diagonals` — group consecutive diagonal gates into
   :class:`DiagBlock` s.
@@ -72,13 +73,25 @@ class PallasBlock:
         return tuple(sorted(s))
 
 
+def is_dense2q(op) -> bool:
+    """A dense 4x4 matrix gate on two qubits with no control: the f32
+    kernel's U4 kind."""
+    return (isinstance(op, GateOp) and op.matrix is not None
+            and getattr(op.matrix, "shape", None) == (4, 4)
+            and len(op.targets) == 2 and not op.controls
+            and op.name.upper() != "D2M")
+
+
 def fuse_pallas_runs(items: List[object], max_qubit: int,
                      min_gates: int = 6, num_qubits: int = None,
-                     relabel_reach: int = None) -> List[object]:
+                     relabel_reach: int = None,
+                     dense2q: bool = False) -> List[object]:
     """Collect runs of uncontrolled 1q gates on qubits <= max_qubit into
     PallasBlocks (runs shorter than ``min_gates`` aren't worth the
     float-pair conversion passes). Disjoint items commute past an open
-    run.
+    run. ``dense2q`` admits dense two-qubit matrix gates
+    (:func:`is_dense2q`), which the f32 kernel applies and the df64 one
+    does not.
 
     With ``relabel_reach`` set (the kernel's in-tile window, see
     ops/relabel.py), gates ABOVE the window are accepted too and scheduled
@@ -98,7 +111,7 @@ def fuse_pallas_runs(items: List[object], max_qubit: int,
     def _sup(op):
         """Qubit support of an eligible op (2q forms: (control, target))."""
         name = op.name.upper()
-        if name in ("RZZ", "D2M"):
+        if name in ("RZZ", "D2M") or is_dense2q(op):
             return (op.targets[0], op.targets[1])
         if name in ("CNOT", "CX", "CZ", "CRZ", "CRX", "CRY"):
             if op.controls:
@@ -116,6 +129,8 @@ def fuse_pallas_runs(items: List[object], max_qubit: int,
             if name == "D2M":  # generic 2q diagonal: rides as "D2"
                 s = _sup(item)
                 return len(s) == 2 and all(q <= max_qubit for q in s)
+            if is_dense2q(item):  # dense 4x4 -> kernel kind "U4"
+                return dense2q and all(q <= max_qubit for q in item.targets)
             # dense 2x2 matrix gates ride as "U" / "CU" (one control);
             # traced matrices (adjoint-grad embeds tracers) are fine — the
             # kernel takes gate matrices as runtime inputs
@@ -155,6 +170,8 @@ def fuse_pallas_runs(items: List[object], max_qubit: int,
         def _anchor(op, s):
             if is_diagonal(op):
                 return ()
+            if is_dense2q(op):  # both qubits in registers
+                return s
             # every eligible non-diagonal 2q form is (control, target) —
             # CNOT/CX and the CU family both resolve an out-of-window
             # control from the grid/pair position, so only the target

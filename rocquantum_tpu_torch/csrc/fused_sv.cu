@@ -52,6 +52,12 @@
 //   D2   multiply by m[bit_a][bit_b] (source b "none": bit_b = 0)
 //   SWAP move the tile to layout t through shared memory (m's bytes: the
 //        bank flip of each local position >= 5)
+//   U4   dense 4x4 on register bits t < a (a is a register source): row r
+//        of the matrix is the m of record k + r, r = 0..3 (the three that
+//        follow are U4_ROW records, which nothing else reads); bit 0 of
+//        the matrix index is register bit t. Complex carry only; a launch
+//        with a U4 runs fused_pass_dense_kernel, the others keep
+//        fused_pass_kernel, which has no U4 case compiled in.
 //
 // What bounds it. A pass reads and writes each plane once: 8 bytes per
 // amplitude and plane. A real 2x2 gate costs 3 FP32 operations per
@@ -89,7 +95,10 @@ constexpr int kMaxOps = 96;
 constexpr int kMaxLayouts = 8;
 constexpr int kSlots = 16;              // local positions per layout record
 
-enum Kind : int { kU = 0, kCNOT = 1, kCU = 2, kD2 = 3, kSwap = 4 };
+enum Kind : int {
+  kU = 0, kCNOT = 1, kCU = 2, kD2 = 3, kSwap = 4, kU4 = 5, kU4Row = 6
+};
+constexpr int kU4Records = 4;  // a U4 record and its three U4_ROW rows
 // bit source: class << 8 | index (register bit, thread bit or qubit)
 enum SrcClass : int { kNone = 0, kReg = 1, kThread = 2, kFree = 3 };
 
@@ -367,9 +376,71 @@ __device__ __forceinline__ void diag_op(float (&ar)[1 << kR],
   }
 }
 
+// U4 on register bits kLo < kHi: every quadruple of registers that differ
+// in those bits (matrix index bit 0 = kLo) gets the 4x4 of records k..k+3,
+// in registers; 16 complex multiply-adds a quadruple.
+template <int kR, int kLo, int kHi>
+__device__ __forceinline__ void dense_op(float (&ar)[1 << kR],
+                                         float (&ai)[1 << kR],
+                                         const PassParams& p, int k) {
+  constexpr int lo = 1 << kLo, hi = 1 << kHi;
+#pragma unroll
+  for (int i = 0; i < (1 << (kR - 2)); ++i) {
+    // i with a zero inserted at bit kLo and at bit kHi
+    const int below = i & (lo - 1);
+    const int mid = (i >> kLo) & ((1 << (kHi - kLo - 1)) - 1);
+    const int top = i >> (kHi - 1);
+    const int j0 = below | (mid << (kLo + 1)) | (top << (kHi + 1));
+    const int j[4] = {j0, j0 | lo, j0 | hi, j0 | lo | hi};
+    const Op* rec = &p.ops[k];
+    float xr[4], xi[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      xr[c] = ar[j[c]];
+      xi[c] = ai[j[c]];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* m = rec[r].m;
+      float yr = 0.0f, yi = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        yr = fmaf(m[2 * c], xr[c], yr);
+        yr = fmaf(-m[2 * c + 1], xi[c], yr);
+        yi = fmaf(m[2 * c], xi[c], yi);
+        yi = fmaf(m[2 * c + 1], xr[c], yi);
+      }
+      ar[j[r]] = yr;
+      ai[j[r]] = yi;
+    }
+  }
+}
+
+// The U4 of records k..k+3 on its runtime register bits, as compile-time
+// ones (one case per pair of the 5 register bits).
+template <int kR>
+__device__ __forceinline__ void dense_switch(float (&ar)[1 << kR],
+                                             float (&ai)[1 << kR],
+                                             const PassParams& p, int k) {
+  static_assert(kR == 5, "the dense op runs on the complex carry");
+  const Op& op = p.ops[k];
+  switch (op.t * 8 + (op.a & 0xff)) {
+    case 0 * 8 + 1: dense_op<kR, 0, 1>(ar, ai, p, k); break;
+    case 0 * 8 + 2: dense_op<kR, 0, 2>(ar, ai, p, k); break;
+    case 0 * 8 + 3: dense_op<kR, 0, 3>(ar, ai, p, k); break;
+    case 0 * 8 + 4: dense_op<kR, 0, 4>(ar, ai, p, k); break;
+    case 1 * 8 + 2: dense_op<kR, 1, 2>(ar, ai, p, k); break;
+    case 1 * 8 + 3: dense_op<kR, 1, 3>(ar, ai, p, k); break;
+    case 1 * 8 + 4: dense_op<kR, 1, 4>(ar, ai, p, k); break;
+    case 2 * 8 + 3: dense_op<kR, 2, 3>(ar, ai, p, k); break;
+    case 2 * 8 + 4: dense_op<kR, 2, 4>(ar, ai, p, k); break;
+    default: dense_op<kR, 3, 4>(ar, ai, p, k); break;
+  }
+}
+
 // Apply the pass's records to one tile in registers; returns the layout in
-// force at the end.
-template <int kR, bool kComplex>
+// force at the end. Only a kDense instantiation has the U4 case.
+template <int kR, bool kComplex, bool kDense>
 __device__ __forceinline__ int apply_ops(float (&ar)[1 << kR],
                                          float (&ai)[1 << kR], float* smem,
                                          const PassParams& p, int tid,
@@ -378,6 +449,13 @@ __device__ __forceinline__ int apply_ops(float (&ar)[1 << kR],
   for (int k = 0; k < p.num_ops; ++k) {
     const Op& op = p.ops[k];
     const int kind = op.kind;
+    if constexpr (kDense) {
+      if (kind == kU4) {
+        dense_switch<kR>(ar, ai, p, k);
+        k += kU4Records - 1;
+        continue;
+      }
+    }
     if (kind == kSwap) {
       const unsigned char* g = reinterpret_cast<const unsigned char*>(op.m);
       const Words<kR> from = layout_words<kR>(p, cur, tid, g);
@@ -401,13 +479,13 @@ __device__ __forceinline__ int apply_ops(float (&ar)[1 << kR],
   return cur;
 }
 
-// kR register bits per thread; launch bounds of kThreads threads and
-// kBlocks resident blocks per SM. Block k owns tile k & (2^(n - T) - 1) of
-// batch element k >> (n - T).
-template <bool kComplex, int kR, int kThreads, int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
-fused_pass_kernel(float* __restrict__ re, float* __restrict__ im,
-                  const __grid_constant__ PassParams p) {
+// One block's pass over its tile: load (or start from |0...0>), the
+// records, store. Block k owns tile k & (2^(n - T) - 1) of batch element
+// k >> (n - T).
+template <bool kComplex, int kR, bool kDense>
+__device__ __forceinline__ void pass_tile(float* __restrict__ re,
+                                          float* __restrict__ im,
+                                          const PassParams& p) {
   constexpr int kRegs = 1 << kR;
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -428,16 +506,39 @@ fused_pass_kernel(float* __restrict__ re, float* __restrict__ im,
     move_plane<kR, false>(re, ar, p, 0, base | load_off);
     if (kComplex) move_plane<kR, false>(im, ai, p, 0, base | load_off);
   }
-  const int cur = apply_ops<kR, kComplex>(ar, ai, smem, p, tid, base);
+  const int cur = apply_ops<kR, kComplex, kDense>(ar, ai, smem, p, tid, base);
   const uint64_t start = base | thread_offset<kR>(p, cur, tid);
   move_plane<kR, true>(re, ar, p, cur, start);
   if (kComplex) move_plane<kR, true>(im, ai, p, cur, start);
 }
 
+// kR register bits per thread; launch bounds of kThreads threads and
+// kBlocks resident blocks per SM.
 template <bool kComplex, int kR, int kThreads, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fused_pass_kernel(float* __restrict__ re, float* __restrict__ im,
+                  const __grid_constant__ PassParams p) {
+  pass_tile<kComplex, kR, false>(re, im, p);
+}
+
+// The same pass with the U4 case: launched only for a pass that has a U4,
+// at one block an SM. The U4 case needs ~192 registers a thread: capped at
+// 128 for two blocks an SM it spilled 3 KB, and a QV pass at n = 30 took
+// 9.15 ms against 8.53 ms uncapped on an H100 80GB HBM3 (PERF.md, kernel
+// table row 1).
+template <int kThreads, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fused_pass_dense_kernel(float* __restrict__ re, float* __restrict__ im,
+                        const __grid_constant__ PassParams p) {
+  pass_tile<true, 5, true>(re, im, p);
+}
+
+template <bool kComplex, int kR, int kThreads, int kBlocks,
+          bool kDense = false>
 cudaError_t launch_pass(float* re, float* im, const PassParams& p,
                         cudaStream_t stream) {
   auto kernel = fused_pass_kernel<kComplex, kR, kThreads, kBlocks>;
+  if constexpr (kDense) kernel = fused_pass_dense_kernel<kThreads, kBlocks>;
   bool exchanges = false;
   for (int k = 0; k < p.num_ops; ++k) exchanges |= p.ops[k].kind == kSwap;
   const size_t smem =
@@ -486,13 +587,24 @@ bool valid_params(const PassParams& p) {
   int layouts = 1;
   for (int k = 0; k < p.num_ops; ++k) {
     const Op& op = p.ops[k];
-    if (op.kind > kSwap) return false;
+    if (op.kind > kU4) return false;  // a U4_ROW is read only after a U4
     if (op.kind == kSwap ? op.t >= kMaxLayouts
                          : (op.kind != kD2 && op.t >= p.reg_bits)) {
       return false;
     }
     if (op.kind == kSwap && op.t >= layouts) layouts = op.t + 1;
     if (!valid_source(op.a, p) || !valid_source(op.b, p)) return false;
+    if (op.kind == kU4) {
+      // the second bit a register bit above t; three U4_ROW records follow
+      if ((op.a >> 8) != kReg || (op.a & 0xff) <= op.t ||
+          k + kU4Records > p.num_ops) {
+        return false;
+      }
+      for (int r = 1; r < kU4Records; ++r) {
+        if (p.ops[k + r].kind != kU4Row) return false;
+      }
+      k += kU4Records - 1;
+    }
   }
   // every layout in use is a permutation of the local positions
   for (int L = 0; L < layouts; ++L) {
@@ -523,7 +635,7 @@ __global__ void init_zero_small_kernel(float* out, int size) {
 
 // re, im: (batch, 2^n) float32 planes on the device, contiguous and 16-byte
 // aligned; im == nullptr selects the real-plane mode (every gate real; the
-// only mode with more than 5 register bits). params: a host PassParams
+// only mode with more than 5 register bits; no U4). params: a host PassParams
 // (ops/fused_sv.py packs it), passed to the kernel by value. Returns a
 // cudaError_t.
 extern "C" int rocq_fused_pass(float* re, float* im, const void* params,
@@ -533,9 +645,14 @@ extern "C" int rocq_fused_pass(float* re, float* im, const void* params,
       (im != nullptr && p.reg_bits != 5)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  bool dense = false;
+  for (int k = 0; k < p.num_ops; ++k) dense |= p.ops[k].kind == kU4;
+  if (dense && im == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (im != nullptr) {
+  if (dense) {
+    err = launch_pass<true, 5, 256, 1, true>(re, im, p, s);
+  } else if (im != nullptr) {
     err = launch_pass<true, 5, 256, 2>(re, im, p, s);
   } else if (p.reg_bits == 5) {
     err = launch_pass<false, 5, 256, 3>(re, im, p, s);

@@ -7,7 +7,9 @@ per-instruction translation + measure -> Counter -> Result :50-110;
 provider.py — ProviderV1 registry). Requires qiskit at import time.
 
 The simulator's state lives on ``device`` (default: the card); the draws
-come from its seeded ``torch.Generator``.
+come from its seeded ``torch.Generator``. Traced (``utils.profiling``), each
+circuit of a ``run`` is a request: its instruction loop is the host span
+``rq.qiskit.translate``, then the simulator's ``rq.run`` and ``rq.sample``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from qiskit.transpiler import Target
 
 from ..api import default_device
 from ..simulator import QuantumSimulator
+from ..utils import profiling
 
 
 class RocQuantumBackend(BackendV2):
@@ -64,27 +67,10 @@ class RocQuantumBackend(BackendV2):
 
         for circuit in run_input:
             self._ensure_simulator(circuit.num_qubits)
-            measured_bits = {}
-            for instruction in circuit.data:
-                op = instruction.operation
-                q_indices = [circuit.find_bit(q).index
-                             for q in instruction.qubits]
-                if op.name in ("rx", "ry", "rz"):
-                    self._simulator.apply_gate(op.name.upper(), q_indices,
-                                               [float(p) for p in op.params])
-                elif op.name in ("cx", "cz", "swap", "h", "x", "y", "z",
-                                 "s", "sdg", "t", "tdg", "ccx", "cswap"):
-                    name = {"cx": "CNOT"}.get(op.name, op.name.upper())
-                    self._simulator.apply_gate(name, q_indices, [])
-                elif op.name == "unitary":
-                    self._simulator.apply_matrix(op.to_matrix(), q_indices)
-                elif op.name == "measure":
-                    c_index = circuit.find_bit(instruction.clbits[0]).index
-                    measured_bits[c_index] = q_indices[0]
-                elif op.name == "barrier":
-                    continue
-                else:
-                    raise ValueError(f"Unsupported instruction: {op.name}")
+            with profiling.span("rq.qiskit.translate",
+                                request=profiling.NEW) as span:
+                measured_bits = self._translate(circuit)
+            self._simulator.request = span.request
 
             qubits_to_measure = list(measured_bits.values())
             if not qubits_to_measure:
@@ -113,6 +99,32 @@ class RocQuantumBackend(BackendV2):
             "success": True,
             "results": results,
         })
+
+    def _translate(self, circuit):
+        """Queue the circuit's gates on the simulator; returns its
+        measurements, {classical bit: qubit}."""
+        measured_bits = {}
+        for instruction in circuit.data:
+            op = instruction.operation
+            q_indices = [circuit.find_bit(q).index
+                         for q in instruction.qubits]
+            if op.name in ("rx", "ry", "rz"):
+                self._simulator.apply_gate(op.name.upper(), q_indices,
+                                           [float(p) for p in op.params])
+            elif op.name in ("cx", "cz", "swap", "h", "x", "y", "z",
+                             "s", "sdg", "t", "tdg", "ccx", "cswap"):
+                name = {"cx": "CNOT"}.get(op.name, op.name.upper())
+                self._simulator.apply_gate(name, q_indices, [])
+            elif op.name == "unitary":
+                self._simulator.apply_matrix(op.to_matrix(), q_indices)
+            elif op.name == "measure":
+                c_index = circuit.find_bit(instruction.clbits[0]).index
+                measured_bits[c_index] = q_indices[0]
+            elif op.name == "barrier":
+                continue
+            else:
+                raise ValueError(f"Unsupported instruction: {op.name}")
+        return measured_bits
 
     def get_statevector(self):
         if self._simulator is None:

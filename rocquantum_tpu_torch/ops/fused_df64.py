@@ -115,7 +115,7 @@ def _check_layer(planes, specs, gate_mats, pair_bits, real_flags):
     if (ih is None) != (il is None):
         raise ValueError("im_hi and im_lo must both be given or both None")
     n = num_qubits_of(rh)
-    specs = _normalize_specs(specs)
+    specs = _normalize_specs(specs, dense=False)
     if real_flags is None:
         real_flags = (False,) * len(specs)
     real_flags = tuple(bool(f) for f in real_flags)
@@ -200,7 +200,7 @@ def apply_fused_layer_df64_reference(rh, rl, ih, il, specs, gate_mats,
     kernel's order of df64 operations and no notion of its local set
     (``pair_bits`` is accepted and ignored). Returns new planes; the inputs
     are not modified."""
-    specs = _normalize_specs(specs)
+    specs = _normalize_specs(specs, dense=False)
     if real_flags is not None and ih is None and not all(real_flags):
         raise ValueError("the real carry (im planes None) requires every "
                          "gate matrix to be real")

@@ -18,7 +18,11 @@ b)`` multiply by the packed diagonal ``gate_mats[k, bit_a, bit_b]``.
 ``gate_mats`` is ``(K, 2, 2, 2)`` float32 ``[k, row, col, re/im]`` (CNOT
 rows are placeholders). ``im=None`` is the real-plane mode (every gate
 real); ``re=None`` (with ``im=None`` and ``num_qubits``) starts the pass
-from |0...0> instead of reading a state.
+from |0...0> instead of reading a state. Beyond the JAX package's kinds,
+``("U4", a, b)`` is a dense 4x4 ``dense_mats[k]`` (``(K, 4, 4, 2)`` float32
+``[k, row, col, re/im]``, rows of other kinds unused) on qubits a and b,
+qubit a the low bit of its index as in ``statevec.apply_matrix``; it needs
+the complex carry, and both its qubits are register bits when it runs.
 
 Which specs a pass may take: targets (and CNOT/CU controls below the
 window) in the low :data:`W_BITS` index bits or in at most
@@ -70,8 +74,15 @@ MAX_OPS = 96      # gate and swap records of one launch
 MAX_LAYOUTS = 8   # layouts of one launch
 _SLOTS = 16
 
-_KIND_CODES = {"U": 0, "CNOT": 1, "CU": 2, "D2": 3}
+_KIND_CODES = {"U": 0, "CNOT": 1, "CU": 2, "D2": 3, "U4": 5}
 SWAP = 4
+U4, U4_ROW = 5, 6  # a U4 record is followed by three U4_ROW records
+_DENSE_FLOATS = 32  # a U4's matrix: 4 rows of 4 complex entries
+# the 8 floats of a U4 row's entries, by whether index bits 1 and 2 swap
+_U4_COLS = {swap: np.array([2 * c + e for c in ((0, 2, 1, 3) if swap
+                                                 else (0, 1, 2, 3))
+                            for e in (0, 1)])
+            for swap in (False, True)}
 # bit sources of a record: class << 8 | index
 SRC_NONE, SRC_REG, SRC_THREAD, SRC_FREE = 0, 1, 2, 3
 
@@ -139,11 +150,13 @@ def build() -> ctypes.CDLL:
     return _LIB
 
 
-def _normalize_specs(specs) -> Tuple[tuple, ...]:
+def _normalize_specs(specs, dense: bool = True) -> Tuple[tuple, ...]:
+    """Specs as ``(kind, qubit, ...)`` tuples of ints; ``dense`` admits
+    U4 (the df64 kernel has none)."""
     out = []
     for spec in specs:
         kind = spec[0]
-        if kind not in _KIND_CODES:
+        if kind not in _KIND_CODES or (kind == "U4" and not dense):
             raise ValueError(f"unknown gate kind {kind!r} in {spec}")
         qs = tuple(int(q) for q in spec[1:])
         if len(qs) != (1 if kind == "U" else 2):
@@ -154,18 +167,28 @@ def _normalize_specs(specs) -> Tuple[tuple, ...]:
 
 def _anchored(spec, w: int) -> Tuple[int, ...]:
     """Qubits of a spec that must lie in the pass's local set: a U target;
-    a CNOT/CU target and its control when the control is below the window
-    (a control above it may be a free, block-resolved bit); no D2 bit."""
+    both U4 qubits; a CNOT/CU target and its control when the control is
+    below the window (a control above it may be a free, block-resolved
+    bit); no D2 bit."""
     kind = spec[0]
     if kind == "D2":
         return ()
-    if kind == "U":
-        return (spec[1],)
+    if kind in ("U", "U4"):
+        return spec[1:]
     return (spec[2],) if spec[1] >= w else (spec[1], spec[2])
 
 
+def _reg_qubits(spec) -> Tuple[int, ...]:
+    """Qubits of a spec that must be register bits when it runs: a U,
+    CNOT or CU target, both U4 qubits, no D2 bit."""
+    kind = spec[0]
+    if kind == "D2":
+        return ()
+    return spec[1:] if kind == "U4" else (spec[-1],)
+
+
 def _check_layer(re, im, specs, gate_mats, pair_bits, real_flags,
-                 num_qubits):
+                 num_qubits, dense_mats=None):
     """Validate a call; returns (n, specs, pair_bits, real_flags)."""
     if re is None:
         if im is not None or num_qubits is None:
@@ -186,6 +209,12 @@ def _check_layer(re, im, specs, gate_mats, pair_bits, real_flags,
     if tuple(np.shape(gate_mats)) != (len(specs), 2, 2, 2):
         raise ValueError(f"gate_mats must have shape ({len(specs)}, 2, 2, 2)"
                          f", got {tuple(np.shape(gate_mats))}")
+    if any(s[0] == "U4" for s in specs):
+        if im is None:
+            raise ValueError("a U4 gate needs the complex carry (re, im)")
+        if tuple(np.shape(dense_mats)) != (len(specs), 4, 4, 2):
+            raise ValueError(f"dense_mats must have shape ({len(specs)}, "
+                             f"4, 4, 2), got {np.shape(dense_mats)}")
     pair_bits = _check_specs(n, specs, pair_bits, window_bits(n),
                              max_pairs(im is not None))
     return n, specs, pair_bits, real_flags
@@ -206,8 +235,8 @@ def _check_specs(n: int, specs, pair_bits, w: int,
     for spec in specs:
         if any(not 0 <= q < n for q in spec[1:]):
             raise ValueError(f"qubit out of range for n={n}: {spec}")
-        if spec[0] != "U" and spec[1] == spec[2] and spec[0] != "D2":
-            raise ValueError(f"control equals target in {spec}")
+        if spec[0] not in ("U", "D2") and spec[1] == spec[2]:
+            raise ValueError(f"a two-qubit gate on one qubit: {spec}")
         if any(q not in local for q in _anchored(spec, w)):
             raise ValueError(f"{spec} touches a qubit outside the pass's "
                              f"local set (bits < {w} and {pair_bits})")
@@ -259,9 +288,10 @@ class Launch:
 
 
 def _local_bits(specs) -> Tuple[int, ...]:
-    """The tile bits of a launch: bits 0-6, every target above them, and
-    the lowest other bits above them up to MIN_TILE_BITS; ascending."""
-    extra = {s[-1] for s in specs if s[0] != "D2" and s[-1] >= ROW_BITS}
+    """The tile bits of a launch: bits 0-6, every target (both qubits of a
+    U4) above them, and the lowest other bits above them up to
+    MIN_TILE_BITS; ascending."""
+    extra = {q for s in specs for q in _reg_qubits(s) if q >= ROW_BITS}
     q = ROW_BITS
     while ROW_BITS + len(extra) < MIN_TILE_BITS:
         extra.add(q)
@@ -300,39 +330,42 @@ class _Scheduler:
         self.tile_bits = len(lbits)
         self.regs = regs
         self.pos = {q: i for i, q in enumerate(lbits)}
-        self.target = [None if s[0] == "D2" else self.pos[s[-1]]
-                       for s in specs]
+        # the local positions a gate needs in registers (none for a D2)
+        self.needs = [frozenset(self.pos[q] for q in _reg_qubits(s))
+                      for s in specs]
         supports = [set(s[1:]) for s in specs]
         self.preds = [[j for j in range(i) if supports[j] & supports[i]]
                       for i in range(len(specs))]
 
     def closure(self, done, regs) -> list:
         """Run, in list order, every gate whose predecessors ran and whose
-        target (if any) is in ``regs``; returns them (``done`` grows)."""
+        register positions (if any) are in ``regs``; returns them
+        (``done`` grows)."""
         run = []
         for i in range(len(self.specs)):
             if i in done or not all(j in done for j in self.preds[i]):
                 continue
-            if self.target[i] is None or self.target[i] in regs:
+            if self.needs[i] <= regs:
                 done.add(i)
                 run.append(i)
         return run
 
     def grow(self, done, allowed, seed):
-        """Register set for the next layout: from ``seed``, add the target
-        of the first gate that is ready but blocked, until the thread's
-        register bits are used; returns it and the gates it would run."""
+        """Register set for the next layout: from ``seed``, add the
+        positions of the first gate that is ready but blocked, while they
+        fit the thread's register bits; returns it and the gates it would
+        run."""
         regs, sim = set(seed), set(done)
         while True:
             self.closure(sim, regs)
             if len(regs) == self.regs:
                 break
-            nxt = next((self.target[i] for i in range(len(self.specs))
-                        if i not in sim and self.target[i] in allowed
+            nxt = next((self.needs[i] - regs for i in range(len(self.specs))
+                        if i not in sim and self.needs[i] - regs <= allowed
                         and all(j in sim for j in self.preds[i])), None)
-            if nxt is None:
+            if nxt is None or len(regs) + len(nxt) > self.regs:
                 break
-            regs.add(nxt)
+            regs |= nxt
         return regs, sim
 
     def fill(self, regs, allowed):
@@ -352,8 +385,8 @@ class _Scheduler:
         program, done = [], set()
         while True:
             cur = layouts[-1]
-            program += [self.encode(i, cur)
-                        for i in self.closure(done, set(cur.reg))]
+            program += [rec for i in self.closure(done, set(cur.reg))
+                        for rec in self.encode(i, cur)]
             if len(done) == len(self.specs):
                 break
             regs, sim = self.grow(done, io_allowed, {0, 1})
@@ -379,16 +412,27 @@ class _Scheduler:
             return SRC_REG << 8 | layout.reg.index(p)
         return SRC_THREAD << 8 | layout.thread.index(p)
 
-    def encode(self, i: int, layout: Layout):
+    def encode(self, i: int, layout: Layout) -> list:
+        """The records of gate ``i`` in ``layout``: one, or a U4's four
+        (the register bits in ascending order: a U4_ROW's ``t`` is the
+        row of the gate's own matrix it carries, rows 1 and 2 trading
+        places when the gate's first qubit sits on the higher bit)."""
         spec = self.specs[i]
         kind = _KIND_CODES[spec[0]]
         if spec[0] == "D2":
             b = SRC_NONE if spec[1] == spec[2] else \
                 self.source(spec[2], layout)
-            return (kind, i, 0, self.source(spec[1], layout), b)
-        t = layout.reg.index(self.target[i])
+            return [(kind, i, 0, self.source(spec[1], layout), b)]
+        if spec[0] == "U4":
+            ra, rb = (layout.reg.index(self.pos[q]) for q in spec[1:])
+            rows = (1, 2) if ra < rb else (2, 1)
+            return [(U4, i, min(ra, rb), SRC_REG << 8 | max(ra, rb),
+                     SRC_NONE)] + [(U4_ROW, i, r, SRC_NONE, SRC_NONE)
+                                   for r in rows + (3,)]
+        (p,) = self.needs[i]
+        t = layout.reg.index(p)
         a = self.source(spec[1], layout) if spec[0] != "U" else SRC_NONE
-        return (kind, i, t, a, SRC_NONE)
+        return [(kind, i, t, a, SRC_NONE)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,7 +549,8 @@ def _packed(n: int, launch: Launch, dtype: np.dtype = _PARAMS_DTYPE):
     kernel's: the same header, layouts and record fields, with ``m``
     holding 2 or 4 floats an entry) without matrices and real flags, and
     where those go: (template, op rows, spec index per row, matrix gather
-    index per row)."""
+    index per row, U4 rows, their gather index into the flat
+    ``dense_mats``)."""
     op_dtype = dtype.fields["ops"][0].base
     width = op_dtype.fields["m"][0].shape[0]  # floats of the 4 entries
     entry = width // 4
@@ -526,8 +571,20 @@ def _packed(n: int, launch: Launch, dtype: np.dtype = _PARAMS_DTYPE):
                              for e in (0, 0, 3, 3)])
     raw = params.reshape(1).view(np.uint8)
     cur = 0
+    dense_rows, dense_gather = [], []
     for r, (kind, spec, t, a, b) in enumerate(launch.program):
         ops["kind"][r], ops["t"][r], ops["a"][r], ops["b"][r] = kind, t, a, b
+        if kind == U4:
+            # rows 0, then the U4_ROWs' t; columns in the order of the
+            # register bits (index bits 1 and 2 swapped with the rows)
+            cols = _U4_COLS[launch.program[r + 1][2] == 2]
+            for j in range(4):
+                row = launch.program[r + j][2] if j else 0
+                dense_rows.append(r + j)
+                dense_gather.append(_DENSE_FLOATS * spec + 8 * row + cols)
+            continue
+        if kind == U4_ROW:
+            continue
         if kind == SWAP:
             # the record's matrix bytes carry the exchange's bank flips
             g = swap_banks(launch.layouts[cur].thread[:LANE_BITS],
@@ -544,30 +601,40 @@ def _packed(n: int, launch: Launch, dtype: np.dtype = _PARAMS_DTYPE):
             else plain
         gather.append(width * spec + pattern)
     return (params, np.asarray(rows, np.int64), np.asarray(spec_idx, np.int64),
-            np.asarray(gather, np.int64).reshape(-1, width))
+            np.asarray(gather, np.int64).reshape(-1, width),
+            np.asarray(dense_rows, np.int64),
+            np.asarray(dense_gather, np.int64).reshape(-1, 8))
 
 
 def pack_launch(n: int, launch: Launch, gate_mats, real_flags,
-                dtype: np.dtype = _PARAMS_DTYPE) -> np.ndarray:
+                dtype: np.dtype = _PARAMS_DTYPE,
+                dense_mats=None) -> np.ndarray:
     """One launch's parameter block of ``dtype`` (a numpy scalar) with the
-    gate matrices (``(K, 2, 2, width / 4)`` float32) and real flags of the
-    pass's specs filled in."""
-    template, rows, spec_idx, gather = _packed(n, launch, dtype)
+    gate matrices (``(K, 2, 2, width / 4)`` float32), the U4 matrices
+    (``dense_mats``, ``(K, 4, 4, 2)``) and real flags of the pass's specs
+    filled in."""
+    template, rows, spec_idx, gather, dense_rows, dense_gather = _packed(
+        n, launch, dtype)
     params = template.copy()
+    ops = params["ops"]
     if len(rows):
         flat = np.ascontiguousarray(gate_mats, np.float32).reshape(-1)
-        ops = params["ops"]
         ops["m"][rows] = flat[gather]
         ops["real"][rows] = np.asarray(real_flags, np.uint8)[spec_idx]
+    if len(dense_rows):
+        flat = np.ascontiguousarray(dense_mats, np.float32).reshape(-1)
+        ops["m"][dense_rows] = flat[dense_gather]
     return params
 
 
 def launch_params(n: int, launch: Launch, gate_mats, real_flags,
-                  gen_zero: bool, batch: int = 1) -> np.ndarray:
+                  gen_zero: bool, batch: int = 1,
+                  dense_mats=None) -> np.ndarray:
     """The kernel's parameter block for one launch over ``batch`` states
     (a numpy scalar of ``_PARAMS_DTYPE``, laid out as ``PassParams`` in
     csrc/fused_sv.cu)."""
-    params = pack_launch(n, launch, gate_mats, real_flags)
+    params = pack_launch(n, launch, gate_mats, real_flags,
+                         dense_mats=dense_mats)
     params["gen_zero"] = int(gen_zero)
     params["batch"] = batch
     return params
@@ -577,8 +644,9 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
                       specs: Sequence[tuple], gate_mats,
                       pair_bits: Sequence[int] = (),
                       real_flags: Sequence[bool] = None,
-                      num_qubits: int = None, device=None):
+                      num_qubits: int = None, device=None, dense_mats=None):
     """Apply ``specs`` to the state in one pass; returns ``(re, im)``.
+    ``dense_mats`` (``(K, 4, 4, 2)``) holds the matrices of U4 specs.
 
     The planes are ``(2^n,)``, or ``(b, 2^n)`` for a batch of b states
     (any b >= 1), every element getting the same gates in the same
@@ -589,13 +657,14 @@ def apply_fused_layer(re: Optional[torch.Tensor], im: Optional[torch.Tensor],
     ``RuntimeError`` when the launch fails."""
     with profiling.span("rq.run.pass"):
         return _apply_fused_layer(re, im, specs, gate_mats, pair_bits,
-                                  real_flags, num_qubits, device)
+                                  real_flags, num_qubits, device, dense_mats)
 
 
 def _apply_fused_layer(re, im, specs, gate_mats, pair_bits, real_flags,
-                       num_qubits, device):
+                       num_qubits, device, dense_mats):
     n, specs, pair_bits, real_flags = _check_layer(
-        re, im, specs, gate_mats, pair_bits, real_flags, num_qubits)
+        re, im, specs, gate_mats, pair_bits, real_flags, num_qubits,
+        dense_mats)
     batch = 1 if re is None else re.numel() >> n
     if re is not None:
         device = re.device
@@ -603,7 +672,8 @@ def _apply_fused_layer(re, im, specs, gate_mats, pair_bits, real_flags,
     if device.type != "cuda":
         return apply_fused_layer_reference(re, im, specs, gate_mats,
                                            real_flags=real_flags,
-                                           num_qubits=n, device=device)
+                                           num_qubits=n, device=device,
+                                           dense_mats=dense_mats)
     if re is not None and not specs:
         return re, im
     for name, plane in (("re", re), ("im", im)):
@@ -616,12 +686,14 @@ def _apply_fused_layer(re, im, specs, gate_mats, pair_bits, real_flags,
         re = torch.empty(1 << n, dtype=torch.float32, device=device)
     if isinstance(gate_mats, torch.Tensor):
         gate_mats = gate_mats.detach().cpu().numpy()
+    if isinstance(dense_mats, torch.Tensor):
+        dense_mats = dense_mats.detach().cpu().numpy()
     stream = torch.cuda.current_stream(device).cuda_stream
     lib = build()
     global LAUNCHES, INIT_LAUNCHES, BATCHED_LAUNCHES
     for k, launch in enumerate(launches):
         params = launch_params(n, launch, gate_mats, real_flags,
-                               gen_zero and k == 0, batch)
+                               gen_zero and k == 0, batch, dense_mats)
         LAUNCHES += 1
         INIT_LAUNCHES += gen_zero and k == 0
         BATCHED_LAUNCHES += batch > 1
@@ -683,7 +755,7 @@ def _zero_plane(n: int, device) -> torch.Tensor:
 
 def apply_fused_layer_reference(re, im, specs, gate_mats, pair_bits=(),
                                 real_flags=None, num_qubits=None,
-                                device=None):
+                                device=None, dense_mats=None):
     """Plain-torch version of :func:`apply_fused_layer`: applies the specs
     in order to the full planes (``(2^n,)`` or a ``(b, 2^n)`` batch)
     through strided views, with no notion of the kernel's local set
@@ -693,6 +765,8 @@ def apply_fused_layer_reference(re, im, specs, gate_mats, pair_bits=(),
     if real_flags is not None and im is None and not all(real_flags):
         raise ValueError("real-plane mode (im=None) requires every gate "
                          "matrix to be real")
+    if im is None and any(s[0] == "U4" for s in specs):
+        raise ValueError("a U4 gate needs the complex carry (re, im)")
     if re is None:
         if im is not None or num_qubits is None:
             raise ValueError("re=None requires im=None and num_qubits")
@@ -707,9 +781,12 @@ def apply_fused_layer_reference(re, im, specs, gate_mats, pair_bits=(),
     # coefficients as Python floats (float32 values, as the kernel reads)
     mats = np.asarray(gate_mats, np.float32).astype(np.float64).tolist()
     x_mat = [[[0.0, 0.0], [1.0, 0.0]], [[1.0, 0.0], [0.0, 0.0]]]
-    for spec, m in zip(specs, mats):
+    for k, (spec, m) in enumerate(zip(specs, mats)):
         kind = spec[0]
-        if kind == "D2":
+        if kind == "U4":
+            u = np.asarray(dense_mats[k], np.float32).astype(np.float64)
+            _ref_dense(re, im, n, spec[1], spec[2], u.tolist())
+        elif kind == "D2":
             _ref_diag(re, im, n, spec[1], spec[2], m)
         elif kind == "U":
             _ref_pair(re, im, n, spec[1], None, m)
@@ -770,3 +847,26 @@ def _ref_diag(re, im, n, a, b, m):
             xr, xi = v_re[idx].clone(), v_im[idx].clone()
             v_re[idx] = dr * xr - di * xi
             v_im[idx] = dr * xi + di * xr
+
+
+def _ref_dense(re, im, n, a, b, m):
+    """4x4 ``m`` (``[row][col][re/im]``) on qubits ``a`` (the low bit of
+    its index) and ``b``, in place."""
+    desc = sorted((a, b), reverse=True)
+    v_re, v_im = _views(re, im, n, desc)
+    axis = {q: 2 * i + 1 for i, q in enumerate(desc)}
+    idx = []
+    for j in range(4):
+        at = [slice(None)] * 5
+        at[axis[a]], at[axis[b]] = j & 1, j >> 1
+        idx.append(tuple(at))
+    xr = [v_re[i].clone() for i in idx]
+    xi = [v_im[i].clone() for i in idx]
+    for row, dst in enumerate(idx):
+        out_r = out_i = 0
+        for c in range(4):
+            mr, mi = m[row][c]
+            out_r = out_r + mr * xr[c] - mi * xi[c]
+            out_i = out_i + mr * xi[c] + mi * xr[c]
+        v_re[dst] = out_r
+        v_im[dst] = out_i

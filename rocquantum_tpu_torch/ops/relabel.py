@@ -163,13 +163,14 @@ def plan_full_1q_layer(n: int, qubits: Sequence[int], reach: int,
 
 def execute_plan(re, im, plan: Sequence[object], gate_mats, n: int,
                  kinds: Sequence[str], real_flags: Sequence[bool] = None,
-                 device=None):
+                 device=None, dense_mats=None):
     """Run a plan on a float-pair state: one fused-kernel call per
     :class:`KernelPass`, one rotation copy per plane for each
     :class:`Rotation`.
 
-    ``kinds[i]`` is the i-th gate's kind ("U", "CNOT", "CU" or "D2");
-    ``gate_mats[i]`` its packed (2, 2, 2) matrix (numpy). ``im=None`` runs
+    ``kinds[i]`` is the i-th gate's kind ("U", "CNOT", "CU", "D2" or
+    "U4"); ``gate_mats[i]`` its packed (2, 2, 2) matrix (numpy), and a
+    U4's (4, 4, 2) one ``dense_mats[i]``. ``im=None`` runs
     every pass in the real-plane mode; ``re=None`` (with ``im=None``)
     starts from |0...0> on ``device``: the first pass generates it, or, when
     the plan starts with a rotation, the fill kernel writes it first. Positions are physical index bits: after a rotation they name
@@ -191,5 +192,6 @@ def execute_plan(re, im, plan: Sequence[object], gate_mats, n: int,
                       for i, p in zip(idx, item.positions))
         re, im = fused_sv.apply_fused_layer(
             re, im, specs, gate_mats[idx], pair_bits=item.pair_bits,
-            real_flags=flags, num_qubits=n, device=device)
+            real_flags=flags, num_qubits=n, device=device,
+            dense_mats=None if dense_mats is None else dense_mats[idx])
     return re, im

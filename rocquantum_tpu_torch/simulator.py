@@ -14,6 +14,11 @@ structure, with the gate angles as runtime parameters, and from n = 15 on
 its runs of gates launch the fused kernel. The state lives on ``device``
 (default: the card); draws come from a ``torch.Generator`` seeded with
 ``seed``.
+
+Traced (``utils.profiling``), a flush is the span ``rq.run`` and a draw
+``rq.sample``, both timed on the state's card; they join the request in
+:attr:`QuantumSimulator.request`, and the first flush after a reset starts
+one when it is None.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from .compiler.interpreter import compile_ir, parametrize
 from .compiler.ir import CircuitIR, GateOp
 from .ops import statevec as sv
+from .utils import profiling
 
 # gate name -> (targets, params) layout, mirroring simulator.cpp:28-48
 _KNOWN_GATES = {"H", "X", "Y", "Z", "S", "SDG", "T", "TDG", "I",
@@ -50,6 +56,9 @@ class QuantumSimulator:
         self._state: Optional[torch.Tensor] = None
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        # the traced request this simulator's spans join (None: the next
+        # flush starts one); a plugin may start it before the flush
+        self.request = None
 
     # -- state helpers -------------------------------------------------------
 
@@ -61,16 +70,21 @@ class QuantumSimulator:
             self._state = self._init_state()
         if not self._queue:
             return
-        ops, values = parametrize(self._queue)
-        fn = compile_ir(CircuitIR(self.num_qubits, ops))
-        self._state = fn(self._state, np.asarray(values, np.float64))
-        self._queue.clear()
+        request = profiling.NEW if self.request is None else self.request
+        with profiling.span("rq.run", request=request,
+                            devices=(self.device,)) as span:
+            ops, values = parametrize(self._queue)
+            fn = compile_ir(CircuitIR(self.num_qubits, ops))
+            self._state = fn(self._state, np.asarray(values, np.float64))
+            self._queue.clear()
+        self.request = span.request
 
     # -- modern API (QuantumSimulator.h:20-33) -------------------------------
 
     def reset(self):
         self._queue.clear()
         self._state = self._init_state()
+        self.request = None
 
     def apply_gate(self, gate_name: str, qubits: Sequence[int],
                    params: Sequence[float] = ()):
@@ -107,9 +121,11 @@ class QuantumSimulator:
         (simulator.cpp:153-184's probability + host sampling, on the
         device)."""
         self._flush()
-        out = sv.sample(self._state, [int(q) for q in qubits], int(shots),
-                        self._generator)
-        return out.cpu().tolist()
+        with profiling.span("rq.sample", request=self.request,
+                            devices=(self.device,)):
+            out = sv.sample(self._state, [int(q) for q in qubits],
+                            int(shots), self._generator)
+            return out.cpu().tolist()
 
     def get_statevector(self) -> np.ndarray:
         self._flush()

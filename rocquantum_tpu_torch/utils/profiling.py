@@ -46,9 +46,12 @@ except ImportError:  # pragma: no cover - older torch
 
 # Counters of work at the program's boundaries, plain integer adds whether
 # or not a profiler runs: the readouts' plane passes, the Pauli terms they
-# evaluate, and those of them the Pauli readout kernel served.
+# evaluate, and those of them the Pauli readout kernel served; the plans
+# made because a plan cache missed; the dense two-qubit (4x4) gates the
+# engines applied, and those of them the fused kernel applied.
 COUNTERS: Dict[str, int] = {"readout_passes": 0, "readout_terms": 0,
-                             "readout_kernel_terms": 0}
+                             "readout_kernel_terms": 0, "plan_misses": 0,
+                             "dense2q_gates": 0, "dense2q_kernel_gates": 0}
 
 # what a span given ``request=NEW`` does: start a new request
 NEW = object()

@@ -86,11 +86,27 @@ def emulate_launch(state, n, params, complex_mode):
     else:
         a = state[g].copy()
     cur = 0
-    for op in params["ops"][:int(params["num_ops"])]:
+    records = params["ops"][:int(params["num_ops"])]
+    for k, op in enumerate(records):
         kind, tt = int(op["kind"]), int(op["t"])
         cplx = complex_mode and not op["real"]
         m = op["m"].astype(np.float64)
         m = m[0::2] + 1j * m[1::2] if cplx else m[0::2] + 0j
+        if kind == fused_sv.U4_ROW:
+            continue
+        if kind == fused_sv.U4:
+            # rows k..k+3; register bits t (index bit 0) and a's
+            assert complex_mode and int(op["a"]) >> 8 == fused_sv.SRC_REG
+            u = np.array([r["m"][0::2] + 1j * r["m"][1::2]
+                          for r in records[k:k + 4]], complex)
+            lo, hi = tt, int(op["a"]) & 0xFF
+            assert lo < hi < R
+            j0 = reg[((reg >> lo) & 1 == 0) & ((reg >> hi) & 1 == 0)]
+            quad = [j0, j0 | 1 << lo, j0 | 1 << hi, j0 | 1 << lo | 1 << hi]
+            x = [a[..., j].copy() for j in quad]
+            for row, j in enumerate(quad):
+                a[..., j] = sum(u[row, c] * x[c] for c in range(4))
+            continue
         if kind == fused_sv.SWAP:
             shared = np.zeros((a.shape[0], 1 << t), complex)
             shared[:, _indices(params, cur)] = a
@@ -120,7 +136,7 @@ def emulate_launch(state, n, params, complex_mode):
 
 
 def emulate_pass(re, im, specs, gate_mats, pair_bits, real_flags,
-                 num_qubits=None):
+                 num_qubits=None, dense_mats=None):
     """fused_sv.apply_fused_layer as the kernel would run it, on numpy:
     ``(2^n,)`` planes, or ``(b, 2^n)`` ones run as one batched launch per
     scheduled launch."""
@@ -136,7 +152,8 @@ def emulate_pass(re, im, specs, gate_mats, pair_bits, real_flags,
                                                       im is not None)):
         assert launch.layouts[0].is_io and _final_layout(launch).is_io
         params = fused_sv.launch_params(n, launch, gate_mats, real_flags,
-                                        re is None and k == 0, batch)
+                                        re is None and k == 0, batch,
+                                        dense_mats)
         emulate_launch(state, n, params, complex_mode=im is not None)
     return state if re is None else state.reshape(re.shape)
 
@@ -433,3 +450,82 @@ def test_init_zero_on_cpu_is_the_plain_plane():
     got = fused_sv.init_zero(12, "cpu")
     assert fused_sv.ZERO_LAUNCHES == before
     assert torch.equal(got, fused_sv._zero_plane(12, "cpu"))
+
+
+def _unitaries(rng, count, dim=4):
+    z = rng.normal(size=(count, dim, dim)) + 1j * rng.normal(
+        size=(count, dim, dim))
+    q, r = np.linalg.qr(z)
+    return q * (np.diagonal(r, axis1=1, axis2=2)
+                / np.abs(np.diagonal(r, axis1=1, axis2=2)))[:, None, :]
+
+
+def _dense_specs(rng, n, pair_bits):
+    """A U4 on two qubits of every pair of local bit classes (register,
+    lane, warp, pair), in both orders, among every other kind in every
+    class."""
+    classes = _class_bits(n, pair_bits)
+    local = [c for c in classes if c != "free" and classes[c]]
+    specs = list(_class_specs(rng, n, pair_bits))
+    for ca in local:
+        for cb in local:
+            a = int(rng.choice(classes[ca]))
+            b = int(rng.choice([q for q in classes[cb] + classes["register"]
+                                if q != a]))
+            specs.append(("U4", a, b))
+    order = rng.permutation(len(specs))
+    return [specs[i] for i in order]
+
+
+def _dense_mats(rng, specs):
+    u = _unitaries(rng, len(specs))
+    return np.stack([u.real, u.imag], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n", sorted(PAIRS))
+def test_dense_two_qubit_records_match_reference(n, batch):
+    """U4 records (a 4x4 on two register bits, its rows in the three
+    records that follow) in every pair of bit classes, both qubit orders,
+    among the other kinds: the emulated launches land on the plain
+    version, batched too."""
+    rng = np.random.default_rng(n * 13 + batch)
+    specs = _dense_specs(rng, n, PAIRS[n])
+    gm = _matrices(rng, specs, real=False)
+    dm = _dense_mats(rng, specs)
+    flags = [False] * len(specs)
+    v = rng.normal(size=(2, batch, 1 << n))
+    v /= np.linalg.norm(v, axis=(0, 2), keepdims=True)
+    re, im = (v[k].astype(np.float32).reshape(
+        (batch, 1 << n) if batch > 1 else (1 << n,)) for k in range(2))
+    got = emulate_pass(re, im, specs, gm, PAIRS[n], flags, dense_mats=dm)
+    want = fused_sv.apply_fused_layer_reference(
+        torch.from_numpy(re), torch.from_numpy(im), specs, gm,
+        real_flags=flags, dense_mats=dm)
+    np.testing.assert_allclose(got.real, want[0].numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.imag, want[1].numpy(), atol=ATOL)
+    records = [op for launch in fused_sv.pass_schedule(
+        n, fused_sv._normalize_specs(specs), True) for op in launch.program]
+    heads = [k for k, op in enumerate(records) if op[0] == fused_sv.U4]
+    assert len(heads) == sum(s[0] == "U4" for s in specs)
+    for k in heads:
+        assert [op[0] for op in records[k + 1:k + 4]] == [fused_sv.U4_ROW] * 3
+        assert records[k][2] < records[k][3] & 0xFF
+
+
+def test_dense_gate_keeps_off_the_real_plane_and_df64():
+    """A U4 needs re+im: the real plane refuses it, and the df64 kernel
+    has no such kind."""
+    rng = np.random.default_rng(5)
+    specs = [("U4", 3, 12)]
+    gm = np.zeros((1, 2, 2, 2), np.float32)
+    dm = _dense_mats(rng, specs)
+    plane = torch.zeros(1 << 15)
+    with pytest.raises(ValueError):
+        fused_sv.apply_fused_layer(plane, None, specs, gm, pair_bits=(12,),
+                                   real_flags=[True], dense_mats=dm)
+    with pytest.raises(ValueError):
+        fused_sv.apply_fused_layer_reference(plane, None, specs, gm,
+                                             dense_mats=dm)
+    with pytest.raises(ValueError):
+        fused_sv._normalize_specs(specs, dense=False)

@@ -1337,3 +1337,147 @@ def test_circuit_expval_launches_the_pauli_readout_kernel(cuda, precision,
         assert abs(values["cuda"] - values["cpu"]) < tol
     finally:
         rq.set_precision(old)
+
+
+def _haar4(rng, count):
+    z = rng.normal(size=(count, 4, 4)) + 1j * rng.normal(size=(count, 4, 4))
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r, axis1=1, axis2=2)
+    return q * (d / np.abs(d))[:, None, :]
+
+
+def _dense_pass(rng, n, pair_bits, count=24):
+    """Random U4 specs on pairs of the local set (both orders, window and
+    pair bits mixed) among ``_random_pass``'s complex specs: (specs,
+    gate_mats, dense_mats)."""
+    specs, mats, _ = _random_pass(rng, n, pair_bits, False, count=count)
+    local = list(range(fused_sv.window_bits(n))) + list(pair_bits)
+    dense = []
+    for u in _haar4(rng, count):
+        a, b = (int(q) for q in rng.choice(local, 2, replace=False))
+        specs.append(("U4", a, b))
+        mats.append(np.eye(2))
+        dense.append(u)
+    order = rng.permutation(len(specs))
+    specs = [specs[i] for i in order]
+    gm = _pack_f32([mats[i] for i in order])
+    dm = np.zeros((len(specs), 4, 4, 2), np.float32)
+    for k, i in enumerate(order):
+        if i >= count:
+            u = dense[i - count]
+            dm[k] = np.stack([u.real, u.imag], -1)
+    return specs, gm, dm
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("n,pair_bits", [(15, ()), (16, (10, 13, 15)),
+                                         (22, (11, 17, 21))])
+def test_dense_kernel_matches_reference(cuda, n, pair_bits, batch):
+    """Passes with U4 records (the dense two-qubit case, compiled only
+    into fused_pass_dense_kernel) against the plain version, batched
+    too: one launch a scheduled launch."""
+    rng = np.random.default_rng(n * 5 + batch + len(pair_bits))
+    specs, gm, dm = _dense_pass(rng, n, pair_bits)
+    shape = (batch, 1 << n) if batch > 1 else (1 << n,)
+    v = rng.normal(size=(2,) + shape)
+    v /= np.linalg.norm(v, axis=(0, -1), keepdims=True)
+    re, im = (torch.from_numpy(v[k].astype(np.float32)).to(cuda)
+              for k in range(2))
+    want = fused_sv.apply_fused_layer_reference(re, im, specs, gm,
+                                                dense_mats=dm)
+    launches = len(fused_sv.pass_schedule(
+        n, fused_sv._normalize_specs(specs), True))
+    before = fused_sv.LAUNCHES
+    got = fused_sv.apply_fused_layer(re.clone(), im.clone(), specs, gm,
+                                     pair_bits=pair_bits, dense_mats=dm)
+    torch.cuda.synchronize()
+    assert fused_sv.LAUNCHES == before + launches
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+
+
+def _qv_plan(rng, n, layers):
+    """The kernel passes of a QV circuit's dense gates on the complex
+    carry: (kinds, passes, gate_mats, dense_mats)."""
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.compiler.ir import GateOp
+    ops = []
+    for _ in range(layers):
+        perm = rng.permutation(n)
+        for w, u in enumerate(_haar4(rng, n // 2)):
+            ops.append(GateOp("UNITARY", (int(perm[2 * w]),
+                                          int(perm[2 * w + 1])), (), (), u))
+    (block,) = interpreter.plan_items(ops, n)
+    kinds, supports, gm, _, dm = interpreter.pallas_block_specs_dense(
+        block, None)
+    return kinds, interpreter.kernel_plan(n, kinds, supports,
+                                   complex_carry=True), gm, dm
+
+
+def test_dense_qv_passes_at_n30_match_plain(cuda):
+    """The first passes of a QV circuit's plan at n = 30 (every one with
+    U4 records, exchanges and pair bits) on 2^30 complex amplitudes, each
+    against the plain version on the card."""
+    n = 30
+    rng = np.random.default_rng(30)
+    kinds, plan, gm, dm = _qv_plan(rng, n, 2)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(30)
+    re = torch.randn(1 << n, generator=gen, device=cuda)
+    im = torch.randn(1 << n, generator=gen, device=cuda)
+    scale = float((re.double().square().sum() + im.double().square().sum())
+                  ** -0.5)
+    re.mul_(scale)
+    im.mul_(scale)
+    for item in plan[:2]:
+        idx = list(item.gate_idx)
+        specs = tuple((kinds[i],) + tuple(p)
+                      for i, p in zip(idx, item.positions))
+        assert any(s[0] == "U4" for s in specs)
+        want = fused_sv.apply_fused_layer_reference(re, im, specs, gm[idx],
+                                                    dense_mats=dm[idx])
+        got = fused_sv.apply_fused_layer(re, im, specs, gm[idx],
+                                         pair_bits=item.pair_bits,
+                                         dense_mats=dm[idx])
+        torch.cuda.synchronize()
+        top = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-5 * top
+        re, im = got
+        del want
+        torch.cuda.empty_cache()
+
+
+def test_quantum_volume_through_the_plugin_on_the_card(cuda, stubs):
+    """A QV circuit at n = 20 through the Qiskit plugin on the card:
+    every dense gate on the fused kernel, the state against the CPU's
+    float64 dense reference, the counts summing to the shots."""
+    import sys
+    from rocquantum_tpu_torch.integrations.qiskit_provider import \
+        RocQuantumBackend
+    from rocquantum_tpu_torch.utils import profiling
+    from qiskit import QuantumCircuit
+    sys.path.insert(0, __file__.rsplit("/tests/", 1)[0])
+    from portbench.circuits import quantum_volume
+    from portbench.reference import dense
+    n = 20
+    gates = quantum_volume.gates({"num_qubits": n, "depth": 8,
+                                  "structure_seed": 3})
+    theta = np.random.default_rng(20).uniform(0, 2 * np.pi, len(gates))
+    qc = QuantumCircuit(n, n)
+    for _, pair, k in gates:
+        qc.unitary(dense.matrix(theta[k]), list(pair))
+    qc.measure(list(range(n)), list(range(n)))
+    backend = RocQuantumBackend(device=cuda)
+    before = (fused_sv.LAUNCHES, profiling.COUNTERS["dense2q_kernel_gates"])
+    counts = backend.run(qc, shots=512).get_counts()
+    assert sum(counts.values()) == 512
+    assert fused_sv.LAUNCHES > before[0]
+    assert profiling.COUNTERS["dense2q_kernel_gates"] - before[1] == \
+        len(gates)
+    want = dense.simulate(n, gates, theta, torch.float64,
+                          [torch.device("cpu")])
+    re, im = want.blocks[0]
+    want = torch.complex(re, im).numpy()
+    got = backend.get_statevector()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
