@@ -8,9 +8,9 @@ Run from the repository root, with one CUDA device visible:
 Phases:
   1. the card (nvidia-smi name and power limit), the torch/CUDA versions
      and which gate-pass planner runs;
-  2. build the five kernels (csrc/fused_sv.cu, fused_df64.cu,
-     rotate_bits.cu, region_dot.cu, pauli_readout.cu) from the checkout,
-     one nvcc per source, all started together;
+  2. build the six kernels (csrc/fused_sv.cu, fused_df64.cu,
+     rotate_bits.cu, region_dot.cu, pauli_readout.cu, adjoint_step.cu)
+     from the checkout, one nvcc per source, all started together;
   3. kernel against its plain-torch version on the card: seeded random
      passes at n = 22 over every gate kind, {no pair bits, one, three,
      five (real plane only)}, {real plane, complex} and the
@@ -65,7 +65,8 @@ Phases:
   11. the kernel front end, compiled programs and adjoint gradients: a
      @kernel ring ansatz at n = 29 (8 layers, 232 angles) differentiated by
      adjoint_grad against phase 4's energy, parameter shift through
-     compile_program and the same sweep with the plain layer function,
+     compile_program and the same sweep with the plain layer function
+     and the plain adjoint step,
      with its launches, times and peak memory beside a 2-layer run; the
      double-precision gradient under set_precision("df64") at n = 26 (2
      layers) against parameter shift and the exact engine's energy;
@@ -170,6 +171,16 @@ Phases:
      the plain version within 1e-5 of max|amp|, the plan timed per pass
      beside a complex pass's byte bound; ``python3 -c "import chip_smoke;
      chip_smoke.dense2q_phase()"`` runs it alone.
+ 20. the adjoint step kernel (csrc/adjoint_step.cu; it replaces no TPU
+     kernel) at n = 26 on the gates the gradient's users send (RY, RX,
+     RZ, CRY, RZZ, U3; real and complex planes, controls above and below
+     the targets, both target orders): against its plain version (planes
+     within ADJOINT_TOL of max|amp|, M within ADJOINT_M_TOL of sum|M|),
+     the same bits on a second launch; one step timed in turns beside its
+     byte bound (both planes read and written once) and beside the plain
+     sequence it replaces (a one-gate fused pass on the ket, the
+     plain-torch M sums, a one-gate pass on the bra); ``python3 -c
+     "import chip_smoke; chip_smoke.adjoint_step_phase()"`` runs it alone.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
 14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
@@ -178,7 +189,9 @@ with the launch counts of its engine kernels set to 0 just before it and
 read just after. The Pauli readout kernel's count is set to 0 and read
 likewise around phase 4's and phase 7's requests, 11.1's first gradient,
 11.3's n = 29 replays and 16.1's energy, and checked to be one launch a
-readout (a cell a launch on 16.1's shards); the kernels line gives these
+readout (a cell a launch on 16.1's shards); the adjoint step kernel's
+around 11.1's first gradient, checked to be one launch a parameterized
+gate (the adjoint_step row's "gradient_launches"); the kernels line gives these
 as the pauli_readout row's "launches", "df64_launches",
 "gradient_launches", "replay_launches" and "sharded_launches". The
 kernels line gives phase 12's counts as "density_launches" and its ms per
@@ -296,6 +309,9 @@ INTEGRATION_SHOTS = 4096
 INTEGRATION_REPS = 1024       # Cirq _run repetitions
 INTEGRATION_TOL = 1e-5        # plugin amplitudes (of max|amp|), probabilities
 INTEGRATION_FRACTION_TOL = 0.03  # count and sample marginals
+ADJOINT_N = 26            # the benchmark's gradient cell
+ADJOINT_TOL = 1e-6        # adjoint step planes, kernel vs plain, of max|amp|
+ADJOINT_M_TOL = 1e-9      # its M, kernel vs plain, of sum |M|
 READOUT_N = 29            # the benchmark's one-card energy cells
 READOUT_SHARD_N = 30      # one card's shard of the four-card cell
 READOUT_RTOL = 1e-7       # kernel vs plain readout, of sum |c| (float32)
@@ -498,10 +514,10 @@ def main():
     from rocquantum_tpu_torch.models import (ghz_ir,
                                              hardware_efficient_ansatz_ir,
                                              qft_ir)
-    from rocquantum_tpu_torch.ops import (_build, _native_planner, df64,
-                                          fused_df64, fused_sv, pairsim,
-                                          pauli_readout, region_dot, relabel,
-                                          rotate)
+    from rocquantum_tpu_torch.ops import (_build, _native_planner,
+                                          adjoint_step, df64, fused_df64,
+                                          fused_sv, pairsim, pauli_readout,
+                                          region_dot, relabel, rotate)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -518,15 +534,15 @@ def main():
     # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
     kernel_modules = (fused_sv, fused_df64, rotate, region_dot,
-                      pauli_readout)
+                      pauli_readout, adjoint_step)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:
         for job in [pool.submit(m.build) for m in kernel_modules]:
             job.result()
     print(f"build: fused_sv.cu, fused_df64.cu, rotate_bits.cu, "
-          f"region_dot.cu and pauli_readout.cu in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"region_dot.cu, pauli_readout.cu and adjoint_step.cu in parallel "
+          f"in {time.perf_counter() - t0:.2f} s")
     for name in ("fused_sv", "fused_df64", "rotate_bits", "region_dot",
-                 "pauli_readout"):
+                 "pauli_readout", "adjoint_step"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -764,8 +780,11 @@ def main():
     plugins = integration_phase(rq, interpreter, fused_sv, fused_df64, rotate,
                                 region_dot, requests, dev)
     readout_paths["sharded_launches"] = shard["pauli_readout"]
+    adjoint_paths = {"gradient_launches":
+                     readout_paths.pop("adjoint_step_launches")}
     readout = {**readout_phase(), **readout_paths}
     dense2q = dense2q_phase()
+    adjoint = {**adjoint_step_phase(), **adjoint_paths}
 
     print(json.dumps({"kernels": [{
         "name": "fused_layer",
@@ -834,6 +853,12 @@ def main():
         "source": "rocquantum_tpu_torch/csrc/pauli_readout.cu",
         "replaces": None,
         **readout,
+    }, {
+        "name": "adjoint_step",
+        "route": "cuda",
+        "source": "rocquantum_tpu_torch/csrc/adjoint_step.cu",
+        "replaces": None,
+        **adjoint,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1899,7 +1924,7 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
     launches of 11.1's first gradient and 11.3's n = 29 replays."""
     import numpy as np
     import torch
-    from rocquantum_tpu_torch.ops import pauli_readout
+    from rocquantum_tpu_torch.ops import adjoint_step, pauli_readout
 
     t_phase = time.perf_counter()
     gib = 1 << 30
@@ -1914,14 +1939,19 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_deep = torch.cuda.memory_allocated()
-    zero_counts(fused_sv, fused_df64, rotate, region_dot, pauli_readout)
+    zero_counts(fused_sv, fused_df64, rotate, region_dot, pauli_readout,
+                adjoint_step)
     (value, grads), t_first = wall(lambda: rq.adjoint_grad(
         ring, n, sim, theta, hamiltonian, return_value=True))
     launches = (fused_sv.LAUNCHES, fused_sv.ZERO_LAUNCHES,
                 fused_sv.INIT_LAUNCHES, fused_df64.LAUNCHES)
-    readouts = {"gradient_launches": pauli_readout.LAUNCHES}
+    readouts = {"gradient_launches": pauli_readout.LAUNCHES,
+                "adjoint_step_launches": adjoint_step.LAUNCHES}
     check(readouts["gradient_launches"] == 1,
           f"the gradient's forward energy is one readout launch: {readouts}")
+    check(readouts["adjoint_step_launches"] == params,
+          f"one adjoint step launch a parameterized gate ({params}): "
+          f"{readouts}")
     peak_deep = torch.cuda.max_memory_allocated()
     print(f"gradient n={n}, {ANSATZ_LAYERS} layers, {params} angles: "
           f"launches (fused, fill, from |0...0>, df64) {launches}, first "
@@ -1973,11 +2003,14 @@ def gradient_phase(rq, qft_ir, fused_sv, fused_df64, rotate, region_dot,
     check(worst <= GRAD_SHIFT_ATOL, f"parameter shift: {worst}")
 
     with plain_layers(fused_sv, "apply_fused_layer",
-                      fused_sv.apply_fused_layer_reference):
-        before = fused_sv.LAUNCHES
+                      fused_sv.apply_fused_layer_reference), \
+            plain_layers(adjoint_step, "apply",
+                         lambda *a: adjoint_step.apply_reference(*a[:5])):
+        before = (fused_sv.LAUNCHES, adjoint_step.LAUNCHES)
         (plain_v, plain_g), t_plain = wall(lambda: rq.adjoint_grad(
             ring, n, sim, theta, hamiltonian, return_value=True))
-        check(fused_sv.LAUNCHES == before, "plain sweep launched no pass")
+        check((fused_sv.LAUNCHES, adjoint_step.LAUNCHES) == before,
+              "plain sweep launched no pass and no adjoint step")
     diff = float(np.abs(plain_g - grads).max())
     rel = abs(plain_v - value) / abs(plain_v)
     print(f"gradient n={n} vs the same sweep with plain layers "
@@ -4157,6 +4190,132 @@ def dense2q_phase():
             "dense2q_bound_ms": max(byte_ms, op_ms),
             "dense2q_passes": len(passes),
             "dense2q_max_abs_err": worst}
+
+
+# (name, targets, controls, angles, complex planes) of phase 20's checks
+ADJOINT_CASES = (
+    ("RY", (0,), (), (0.7,), False), ("RY", (1,), (), (0.7,), False),
+    ("RY", (13,), (), (0.7,), False), ("RY", (25,), (), (0.7,), True),
+    ("RX", (5,), (), (1.3,), False), ("RZ", (0,), (), (-0.4,), True),
+    ("CRY", (0,), (17,), (2.1,), False), ("CRY", (9,), (1,), (2.1,), True),
+    ("RZZ", (0, 1), (), (0.9,), True), ("RZZ", (1, 0), (), (0.9,), True),
+    ("RZZ", (20, 3), (), (0.9,), False), ("RZZ", (0, 24), (7,), (0.9,), True),
+    ("U3", (2,), (0, 21), (0.3, -1.1, 2.5), True),
+    ("U3", (1,), (), (0.3, -1.1, 2.5), False),
+)
+
+
+def adjoint_step_phase():
+    """Phase 20: the adjoint step kernel at the gradient cell's n = 26
+    against its plain version (ADJOINT_CASES), the same bits on a second
+    launch, and one step on a real plane (RY) and on a complex pair (RX)
+    timed in turns beside its byte bound and the plain sequence it
+    replaces; the fields of the kernels line's adjoint_step row but its
+    path launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rocquantum_tpu_torch import autodiff
+    from rocquantum_tpu_torch.compiler.interpreter import compile_pair32_ir
+    from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp, ParamRef
+    from rocquantum_tpu_torch.ops import _build, adjoint_step, gates
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    adjoint_step.build()
+    for line in _build.BUILD_LOGS.get("adjoint_step", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas adjoint_step: {line.strip()}")
+    n = ADJOINT_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    work = adjoint_step.scratch(dev)
+
+    def planes(complex_):
+        re = torch.randn(1 << n, generator=gen, device=dev)
+        im = torch.randn(1 << n, generator=gen, device=dev) \
+            if complex_ else None
+        scale = float(re.double().square().sum() + (
+            0 if im is None else im.double().square().sum())) ** -0.5
+        return re.mul_(scale), None if im is None else im.mul_(scale)
+
+    def copy(pair):
+        return tuple(None if p is None else p.clone() for p in pair)
+
+    def step_of(name, targets, controls, angles):
+        base = {"CRY": "RY"}.get(name, name)
+        u = gates.gate_matrix(base, angles)
+        d = u.shape[0]
+        v = np.zeros((1, 4, 4), np.complex128)
+        v[0, :d, :d] = u.conj().T
+        step = adjoint_step.plan(n, controls, targets)
+        return adjoint_step.pack(v, np.array([step.swap]))[0], step, d
+
+    worst = m_worst = 0.0
+    for name, targets, controls, angles, complex_ in ADJOINT_CASES:
+        v, step, d = step_of(name, targets, controls, angles)
+        ket, bra = planes(complex_), planes(complex_)
+        want_m = torch.zeros(2, 4, 4, dtype=torch.float64, device=dev)
+        want = adjoint_step.apply_reference(copy(ket), copy(bra), v, step,
+                                            want_m)
+        got_m = torch.zeros_like(want_m)
+        got = adjoint_step.apply(copy(ket), copy(bra), v, step, got_m, work)
+        again_m = torch.zeros_like(want_m)
+        again = adjoint_step.apply(copy(ket), copy(bra), v, step, again_m,
+                                   work)
+        torch.cuda.synchronize()
+        top = max(float(p.abs().max()) for pair in want for p in pair
+                  if p is not None)
+        err = max(float((a - b).abs().max()) for gp, wp in zip(got, want)
+                  for a, b in zip(gp, wp) if b is not None) / top
+        m_err = float((got_m - want_m).abs().max()) / float(
+            want_m.abs().sum())
+        worst, m_worst = max(worst, err), max(m_worst, m_err)
+        print(f"adjoint step {name} targets {targets} controls {controls} "
+              f"{'complex' if complex_ else 'real'} (layout {step.lt}): "
+              f"planes {err:.2e} of max|amp|, M {m_err:.2e} of sum|M|")
+        check(err <= ADJOINT_TOL, f"adjoint step planes: {err:.3e}")
+        check(m_err <= ADJOINT_M_TOL, f"adjoint step M: {m_err:.3e}")
+        check(torch.equal(got_m, again_m) and all(
+            torch.equal(a, b) for gp, ap in zip(got, again)
+            for a, b in zip(gp, ap) if a is not None),
+            f"adjoint step {name}: a second launch differs")
+        del ket, bra, want, got, again
+        torch.cuda.empty_cache()
+
+    row = {"max_abs_err": worst, "m_err": m_worst, "bound_by": "bytes",
+           "library_ms": None}
+    for key, name, angles, complex_ in (("", "RY", (0.7,), False),
+                                        ("complex_", "RX", (1.3,), True)):
+        v, step, _ = step_of(name, (13,), (), angles)
+        ket, bra = planes(complex_), planes(complex_)
+        out = torch.zeros(2, 4, 4, dtype=torch.float64, device=dev)
+        op = GateOp(name, (13,), (), (ParamRef(0),))
+        run = compile_pair32_ir(CircuitIR(n, [dataclasses.replace(
+            op, is_adjoint=True)]), every_run=True)
+        values = np.asarray(angles)
+
+        def plain_step():
+            k = run(ket, values)
+            autodiff._correlation(bra, k, [], [13])
+            run(bra, values)
+
+        plain_1, ms_1, ms_2, plain_2 = time_turns(
+            repeat(lambda: adjoint_step.apply(ket, bra, v, step, out, work)),
+            repeat(plain_step), 50, 5)
+        planes_ = 2 if complex_ else 1
+        bound = (1 << n) * 4 * planes_ * 2 * 2 / HBM_BYTES_PER_S * 1e3
+        row.update({f"{key}ms": min(ms_1, ms_2),
+                    f"{key}plain_ms": min(plain_1, plain_2),
+                    f"{key}bound_ms": bound})
+        print(f"adjoint step {name} n={n} {'complex' if complex_ else 'real'}"
+              f": kernel {ms_1:.3f} / {ms_2:.3f} ms, bound {bound:.3f} ms "
+              f"({100 * bound / min(ms_1, ms_2):.1f}%), plain sequence "
+              f"{plain_1:.3f} / {plain_2:.3f} ms")
+        del ket, bra
+        torch.cuda.empty_cache()
+    print(f"adjoint step phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 if __name__ == "__main__":

@@ -1170,29 +1170,31 @@ def adjoint_grad(kernel_func: Callable, num_qubits: int, simulator: Simulator,
     """Gradient by adjoint differentiation on the simulator's device: the
     energy function is made once per (kernel structure, observable,
     precision, device) and differentiated by ``torch.autograd.grad``.
-    Returns numpy, as the JAX package does."""
-    values = np.asarray(initial_params, dtype=float)
-    # Key on the kernel's traced circuit STRUCTURE, not id(func): id() is
-    # reused after GC, so a new kernel could silently hit a dead kernel's
-    # energy function. Tracing with concrete host params is cheap (pure
-    # Python) and gives the exact structure energy() will re-trace.
-    rec = _Recorder(num_qubits)
-    func = getattr(kernel_func, "__wrapped__", kernel_func)
-    func(rec, *[float(p) for p in values])
-    ir_key = CircuitIR(num_qubits, rec.ops).structural_key()
-    key = (ir_key, num_qubits, repr(observable), values.shape[0],
-           config.get_precision(), str(simulator.device))
-    fn = _ADJ_CACHE.get(key)
-    if fn is None:
-        fn = make_energy_fn(kernel_func, num_qubits, observable,
-                            values.shape[0], device=simulator.device)
-        _ADJ_CACHE[key] = fn
-    params = torch.tensor(values, dtype=config.real_dtype(),
-                          requires_grad=True)
-    value = fn(params)
-    (grads,) = torch.autograd.grad(value, params, allow_unused=True)
-    grads = np.zeros(values.shape, params.dtype) if grads is None \
-        else grads.numpy()
-    if return_value:
-        return float(value.detach()), grads
-    return grads
+    Returns numpy, as the JAX package does. A request of its own: the
+    host span ``rq.grad``."""
+    with profiling.span("rq.grad", request=profiling.NEW):
+        values = np.asarray(initial_params, dtype=float)
+        # Key on the kernel's traced circuit STRUCTURE, not id(func): id() is
+        # reused after GC, so a new kernel could silently hit a dead kernel's
+        # energy function. Tracing with concrete host params is cheap (pure
+        # Python) and gives the exact structure energy() will re-trace.
+        rec = _Recorder(num_qubits)
+        func = getattr(kernel_func, "__wrapped__", kernel_func)
+        func(rec, *[float(p) for p in values])
+        ir_key = CircuitIR(num_qubits, rec.ops).structural_key()
+        key = (ir_key, num_qubits, repr(observable), values.shape[0],
+               config.get_precision(), str(simulator.device))
+        fn = _ADJ_CACHE.get(key)
+        if fn is None:
+            fn = make_energy_fn(kernel_func, num_qubits, observable,
+                                values.shape[0], device=simulator.device)
+            _ADJ_CACHE[key] = fn
+        params = torch.tensor(values, dtype=config.real_dtype(),
+                              requires_grad=True)
+        value = fn(params)
+        (grads,) = torch.autograd.grad(value, params, allow_unused=True)
+        grads = np.zeros(values.shape, params.dtype) if grads is None \
+            else grads.numpy()
+        if return_value:
+            return float(value.detach()), grads
+        return grads

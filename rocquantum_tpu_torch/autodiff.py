@@ -16,27 +16,32 @@ the ket (no conjugation around it, as JAX's complex cotangents need):
 
 Every U^dagger step runs the same engine as the forward pass. In single
 precision that is the fused kernel (``compile_pair32_ir`` on the adjoint
-ops, every eligible run a kernel block): one step per maximal run of
-parameter-free gates, one per parameterized gate. Plans are cached by
-structure, and a parameterized gate's step is planned with its parameters
-renumbered from 0, so the one-gate steps of an ansatz share one plan per
-(gate, qubit). In double precision (``"double"`` and ``"df64"``) both
-directions run the exact complex128 engine (``interpreter.run_ops_f64``),
-as the JAX package differentiates its exact float64 pair engine.
+ops, every eligible run a kernel block) for each maximal run of
+parameter-free gates; plans are cached by structure. A parameterized gate
+of at most two targets on CUDA float32 planes takes one launch of the
+adjoint step kernel (``ops/adjoint_step.py``): ``U^dagger`` on the ket,
+the gate's ``M`` in float64 and ``U^dagger`` on the bra in one pass. Other
+parameterized gates, and every gate on CPU planes, run their step as two
+one-gate kernel steps (planned with the gate's parameters renumbered from
+0, so the one-gate steps of an ansatz share one plan per (gate, qubit))
+around plain-torch sums (:func:`_correlation`). In double precision
+(``"double"`` and ``"df64"``) both directions run the exact complex128
+engine (``interpreter.run_ops_f64``), as the JAX package differentiates
+its exact float64 pair engine.
 
-The products ``dU_k/dtheta ket`` stay plain torch (the JAX package leaves
-them to XLA): each gate's step forms the (2^m, 2^m) matrix
-``M_ac = sum_r conj(bra[r, a]) ket[r, c]`` over its m targets (where every
-control is 1) on the device, and ``grad = d/dtheta Re sum_ac U_ac M_ac`` is
-one host autograd call over the gates' differentiable matrices
-(``ops/gates.gate_matrix_t``), so shared parameters and U3's three
-accumulate.
+Each gate's step forms the (2^m, 2^m) matrix ``M_ac = sum_r conj(bra[r,
+a]) ket[r, c]`` over its m targets (where every control is 1) on the
+device, into one float64 buffer of the request; ``grad = d/dtheta Re
+sum_ac U_ac M_ac`` is one host autograd call over the gates' matrices,
+built once a request in batches of one gate name (``ops/gates.
+gate_matrices_t``; their ``U^dagger`` are the kernel's), so shared
+parameters and U3's three accumulate.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,9 +50,11 @@ from .compiler.interpreter import (_ADJOINT_NAME, _host_params, _split_op,
                                    compile_pair32_ir, init_real, init_real64,
                                    run_ops_f64)
 from .compiler.ir import CircuitIR, GateOp, ParamRef
+from .ops import adjoint_step
 from .ops import gates as _g
 from .ops import pairsim
 from .ops import statevec as sv
+from .utils import profiling
 
 _F64 = torch.float64
 
@@ -139,6 +146,70 @@ def _correlation(bra, ket, controls, targets) -> torch.Tensor:
         2, size, size)
 
 
+class _ParamStep(NamedTuple):
+    """A parameterized gate's backward step: the gate, its parameter
+    slots, controls and targets, and its adjoint step kernel plan (None
+    where the kernel does not take it)."""
+
+    op: GateOp
+    slots: np.ndarray
+    controls: list
+    targets: list
+    plan: Optional[adjoint_step.StepPlan]
+
+
+class _GateTable:
+    """The parameterized gates of a sweep, last first, grouped by base
+    name for one batched build of their matrices a request."""
+
+    def __init__(self, gates: Sequence[_ParamStep]):
+        self.ops = [g.op for g in gates]
+        self.size = max([4] + [1 << len(g.targets) for g in gates])
+        self.swaps = np.array([g.plan is not None and g.plan.swap
+                               for g in gates], bool)
+        groups, self.rest = {}, []
+        for row, op in enumerate(self.ops):
+            base, _, _ = _split_op(op)
+            if op.matrix is not None or not _g.is_parameterized(base):
+                self.rest.append(row)
+                continue
+            groups.setdefault((base, op.is_adjoint), []).append(row)
+        self.groups = []
+        for (base, adjoint), rows in groups.items():
+            params = [self.ops[r].params for r in rows]
+            ref = np.array([[isinstance(p, ParamRef) for p in ps]
+                            for ps in params])
+            slots = np.array([[p.index if isinstance(p, ParamRef) else 0
+                               for p in ps] for ps in params])
+            fixed = np.array([[0.0 if isinstance(p, ParamRef) else float(p)
+                               for p in ps] for ps in params])
+            self.groups.append((base, adjoint, torch.tensor(rows),
+                                torch.tensor(ref), torch.tensor(slots),
+                                torch.tensor(fixed, dtype=_F64)))
+
+    def __len__(self) -> int:
+        return len(self.ops)
+
+    def matrices(self, theta: torch.Tensor) -> torch.Tensor:
+        """``(P, size, size)`` complex128: each gate's (uncontrolled)
+        unitary at ``theta`` (float64), differentiable in it; a gate of
+        fewer targets in the top-left corner, the rest 0."""
+        out = torch.zeros((len(self.ops), self.size, self.size),
+                          dtype=torch.complex128)
+        for base, adjoint, rows, ref, slots, fixed in self.groups:
+            u = _g.gate_matrices_t(base, torch.where(ref, theta[slots],
+                                                     fixed))
+            if adjoint:
+                u = u.conj().transpose(-1, -2)
+            d = u.shape[-1]
+            out[rows, :d, :d] = u
+        for row in self.rest:
+            u = _base_matrix_t(self.ops[row], theta)
+            d = u.shape[-1]
+            out[row, :d, :d] = u
+        return out
+
+
 class _Sweep:
     """The forward run and the backward steps of one gate list on one
     engine, planned at the first backward and kept."""
@@ -150,6 +221,7 @@ class _Sweep:
         self.device = torch.device(device)
         self.exact = exact
         self._steps = None
+        self.table = None
         if not exact:
             self._forward = compile_pair32_ir(CircuitIR(num_qubits, self.ops))
 
@@ -170,8 +242,8 @@ class _Sweep:
     def steps(self):
         """Backward steps, last gate first: ``(run, None)`` for a maximal
         run of parameter-free gates, ``(run, gate)`` for a parameterized
-        gate, whose adjoint runs with its parameters renumbered from 0
-        (``gate`` = (op, slots, controls, targets))."""
+        gate (a :class:`_ParamStep`), whose adjoint runs with its
+        parameters renumbered from 0. Also sets :attr:`table`."""
         if self._steps is not None:
             return self._steps
         steps = []
@@ -196,9 +268,15 @@ class _Sweep:
             adj = dataclasses.replace(op, params=tuple(params),
                                       is_adjoint=not op.is_adjoint)
             _, controls, targets = _split_op(op)
+            plan = None
+            if not self.exact and self.n >= 2 and \
+                    len(targets) <= adjoint_step.MAX_TARGETS:
+                plan = adjoint_step.plan(self.n, controls, targets)
             steps.append((self._runner([adj]),
-                          (op, np.asarray(slots), controls, targets)))
+                          _ParamStep(op, np.asarray(slots), controls,
+                                     targets, plan)))
             idx -= 1
+        self.table = _GateTable([g for _, g in steps if g is not None])
         self._steps = steps
         return steps
 
@@ -230,39 +308,56 @@ class ReversibleExecute(torch.autograd.Function):
         ket = (out_re.clone(), _own(out_im))
         bra = (torch.zeros_like(out_re) if grad_re is None else
                grad_re.clone(), None if out_im is None else _own(grad_im))
-        gates, mats = [], []
-        for run, gate in sweep.steps():
+        steps = sweep.steps()
+        table = sweep.table
+        theta = torch.tensor(values, dtype=_F64, requires_grad=True)
+        with torch.enable_grad():
+            us = table.matrices(theta)
+        # one launch a step for what the adjoint step kernel takes
+        kernel = (not sweep.exact and table.size == 4
+                  and adjoint_step.takes(ket[0])
+                  and adjoint_step.takes(bra[0]))
+        if kernel:
+            vs = adjoint_step.pack(
+                us.detach().numpy().conj().transpose(0, 2, 1), table.swaps)
+            work = adjoint_step.scratch(ket[0].device)
+        mats = torch.zeros((len(table), 2, table.size, table.size),
+                           dtype=_F64, device=ket[0].device)
+        row = 0
+        for run, gate in steps:
             if gate is None:
                 ket = run(ket, values)
                 bra = run(bra, values)
                 continue
-            op, slots, controls, targets = gate
-            ket = run(ket, values[slots])
-            mats.append(_correlation(bra, ket, controls, targets))
-            gates.append(op)
-            bra = run(bra, values[slots])
-        return _param_grads(gates, mats, values).to(
+            profiling.count("adjoint_steps")
+            if kernel and gate.plan is not None:
+                ket, bra = adjoint_step.apply(ket, bra, vs[row], gate.plan,
+                                              mats[row], work)
+                profiling.count("adjoint_kernel_steps")
+            else:
+                ket = run(ket, values[gate.slots])
+                m = _correlation(bra, ket, gate.controls, gate.targets)
+                d = m.shape[-1]
+                mats[row, :, :d, :d] = m
+                bra = run(bra, values[gate.slots])
+            row += 1
+        return _param_grads(us, theta, mats).to(
             dtype=params.dtype, device=params.device), None
 
 
-def _param_grads(gates, mats, values: np.ndarray) -> torch.Tensor:
-    """d/dtheta of sum_k Re sum_ac U_k(theta)_ac M_k,ac: one host autograd
-    call over the gates' differentiable matrices, after one read of every
-    M_k from the device."""
-    theta = torch.tensor(values, dtype=_F64, requires_grad=True)
-    if not gates:
+def _param_grads(us: torch.Tensor, theta: torch.Tensor,
+                 mats: torch.Tensor) -> torch.Tensor:
+    """d/dtheta of sum_k Re sum_ac U_k(theta)_ac M_k,ac, ``us`` the gates'
+    matrices built from ``theta`` with their graph, ``mats`` every gate's
+    ``(2, size, size)`` M (re, im): one host autograd call after one read
+    of every M from the device."""
+    if not len(us):
         return torch.zeros_like(theta)
-    ms = torch.cat([m.reshape(-1) for m in mats]).cpu()
+    ms = mats.cpu()
     with torch.enable_grad():
-        total, at = 0.0, 0
-        for op, m in zip(gates, mats):
-            size = m[0].numel()
-            u = _base_matrix_t(op, theta).reshape(-1)
-            m_re, m_im = ms[at:at + size], ms[at + size:at + 2 * size]
-            at += 2 * size
-            total = total + torch.sum(u.real * m_re - u.imag * m_im)
-        (grads,) = torch.autograd.grad(total, theta)
-    return grads
+        total = torch.sum(us.real * ms[:, 0] - us.imag * ms[:, 1])
+        (grads,) = torch.autograd.grad(total, theta, allow_unused=True)
+    return torch.zeros_like(theta) if grads is None else grads
 
 
 def make_reversible_execute(ops: Sequence[GateOp], num_qubits: int,

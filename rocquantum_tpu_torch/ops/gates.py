@@ -113,8 +113,9 @@ def _angle(p) -> torch.Tensor:
 
 
 def _mat(rows) -> torch.Tensor:
-    return torch.stack([torch.stack([torch.as_tensor(e).to(_C128)
-                                     for e in row]) for row in rows])
+    """``(G, d, d)`` complex128 from rows of ``(G,)`` entries."""
+    return torch.stack([torch.stack([e.to(_C128) for e in row], -1)
+                        for row in rows], -2)
 
 
 def _rx_t(theta):
@@ -128,20 +129,19 @@ def _ry_t(theta):
 
 
 def _rz_t(theta):
-    zero = torch.zeros((), dtype=_C128)
+    zero = torch.zeros_like(theta)
     return _mat([[torch.exp(-0.5j * theta), zero],
                  [zero, torch.exp(0.5j * theta)]])
 
 
 def _phase_t(lam):
-    zero = torch.zeros((), dtype=_C128)
-    return _mat([[torch.ones((), dtype=_C128), zero],
-                 [zero, torch.exp(1j * lam)]])
+    zero = torch.zeros_like(lam)
+    return _mat([[torch.ones_like(lam), zero], [zero, torch.exp(1j * lam)]])
 
 
 def _rzz_t(theta):
     em, ep = torch.exp(-0.5j * theta), torch.exp(0.5j * theta)
-    return torch.diag(torch.stack([em, ep, ep, em]))
+    return torch.diag_embed(torch.stack([em, ep, ep, em], -1))
 
 
 def _u3_t(theta, phi, lam):
@@ -150,6 +150,7 @@ def _u3_t(theta, phi, lam):
                  [torch.exp(1j * phi) * s, torch.exp(1j * (phi + lam)) * c]])
 
 
+# batched differentiable builders: (G,) float64 angles -> (G, d, d)
 _PARAMETERIZED_T = {
     "RX": _rx_t, "RY": _ry_t, "RZ": _rz_t, "P": _phase_t, "PHASE": _phase_t,
     "U3": _u3_t, "RZZ": _rzz_t,
@@ -163,8 +164,19 @@ def gate_matrix_t(name: str, params=()) -> torch.Tensor:
     if key in FIXED:
         return torch.from_numpy(FIXED[key])
     if key in _PARAMETERIZED_T:
-        return _PARAMETERIZED_T[key](*(_angle(p) for p in params))
+        return _PARAMETERIZED_T[key](
+            *(_angle(p).reshape(1) for p in params))[0]
     raise ValueError(f"Unknown gate name: {name}")
+
+
+def gate_matrices_t(name: str, params: torch.Tensor) -> torch.Tensor:
+    """:func:`gate_matrix_t` of a batch of one parameterized gate:
+    ``params`` ``(G, p)`` float64 gives ``(G, d, d)`` complex128,
+    differentiable in ``params``."""
+    key = name.upper()
+    if key not in _PARAMETERIZED_T:
+        raise ValueError(f"Unknown parameterized gate name: {name}")
+    return _PARAMETERIZED_T[key](*params.unbind(-1))
 
 
 # -- (re, im) parts (torch, the precision's real dtype) -----------------------

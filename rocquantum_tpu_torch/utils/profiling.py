@@ -22,7 +22,7 @@ resolves the events, once the caller has synchronized the device.
 
 A request begins at ``CompiledProgram.run`` (a new request id); the
 readouts on the Circuit handle it returns carry the same id until the
-next run.
+next run. ``adjoint_grad`` is a request of its own (``rq.grad``).
 """
 
 from __future__ import annotations
@@ -48,10 +48,13 @@ except ImportError:  # pragma: no cover - older torch
 # or not a profiler runs: the readouts' plane passes, the Pauli terms they
 # evaluate, and those of them the Pauli readout kernel served; the plans
 # made because a plan cache missed; the dense two-qubit (4x4) gates the
-# engines applied, and those of them the fused kernel applied.
+# engines applied, and those of them the fused kernel applied; the
+# parameterized gates the adjoint sweep walked back, and those of them the
+# adjoint step kernel served.
 COUNTERS: Dict[str, int] = {"readout_passes": 0, "readout_terms": 0,
                              "readout_kernel_terms": 0, "plan_misses": 0,
-                             "dense2q_gates": 0, "dense2q_kernel_gates": 0}
+                             "dense2q_gates": 0, "dense2q_kernel_gates": 0,
+                             "adjoint_steps": 0, "adjoint_kernel_steps": 0}
 
 # what a span given ``request=NEW`` does: start a new request
 NEW = object()

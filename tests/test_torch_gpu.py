@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain-torch versions: the
-fused-layer kernels (f32 and df64), the index-bit rotation copy and the
-two tensor-core region dots; and the paths that launch them: Circuit,
+fused-layer kernels (f32 and df64), the index-bit rotation copy, the
+two tensor-core region dots, the Pauli readout and the adjoint step; and
+the paths that launch them: Circuit,
 compile_program, the adjoint gradient, the flat-state engine
 (execute/compile_ir) with its front ends, and the sharded Circuit on
 virtual shards of one card (and over every card, where there are two or
@@ -24,8 +25,9 @@ import torch
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch.models import (hardware_efficient_ansatz_ir, qft_ir,
                                          random_circuit_ir)
-from rocquantum_tpu_torch.ops import (df64, fused_df64, fused_sv, region_dot,
-                                      relabel, rotate)
+from rocquantum_tpu_torch.ops import (adjoint_step, df64, fused_df64,
+                                      fused_sv, gates, region_dot, relabel,
+                                      rotate)
 from rocquantum_tpu_torch.tensornet import (Tensor, TensorNetwork,
                                             _native_pathfinder, tensor_svd)
 
@@ -639,18 +641,27 @@ def _value_and_grad(n, theta, device):
 
 
 def test_reversible_gradient_on_the_card_matches_plain_layers(cuda):
-    """The sweep's forward and every U^dagger step launch the fused kernel;
-    the same sweep with the plain layer function agrees."""
+    """The sweep's forward and its parameter-free steps launch the fused
+    kernel, each angle's step the adjoint step kernel; the same sweep with
+    the plain layer function and the plain adjoint step agrees."""
     n = 20
     theta = np.random.default_rng(20).normal(size=3 * n)
-    before = fused_sv.LAUNCHES
+    before = (fused_sv.LAUNCHES, adjoint_step.LAUNCHES)
     value, grads = _value_and_grad(n, theta, cuda)
-    launches = fused_sv.LAUNCHES - before
-    # the forward's passes, then two one-gate passes per angle at least
-    assert launches >= 2 * len(theta)
-    with _plain_layers():
-        want_v, want_g = _value_and_grad(n, theta, cuda)
-    assert fused_sv.LAUNCHES - before == launches
+    launches = fused_sv.LAUNCHES - before[0]
+    # the forward's passes, then two passes per CNOT ring at least
+    assert launches >= 2 * 3
+    assert adjoint_step.LAUNCHES - before[1] == len(theta)
+    kernel_step = adjoint_step.apply
+    adjoint_step.apply = \
+        lambda *args: adjoint_step.apply_reference(*args[:5])
+    try:
+        with _plain_layers():
+            want_v, want_g = _value_and_grad(n, theta, cuda)
+    finally:
+        adjoint_step.apply = kernel_step
+    assert fused_sv.LAUNCHES - before[0] == launches
+    assert adjoint_step.LAUNCHES - before[1] == len(theta)
     assert abs(value - want_v) <= 1e-5 * abs(want_v)
     np.testing.assert_allclose(grads, want_g, atol=1e-4)
 
@@ -677,12 +688,13 @@ def test_compile_program_replay_on_the_card_matches_circuit(cuda):
 def test_adjoint_grad_on_a_cuda_simulator_launches_the_fused_kernel(cuda):
     n = 16
     theta = np.random.default_rng(6).normal(size=n)
-    before = (fused_sv.LAUNCHES, fused_df64.LAUNCHES)
+    before = (fused_sv.LAUNCHES, fused_df64.LAUNCHES, adjoint_step.LAUNCHES)
     value, grads = rq.adjoint_grad(rq.kernel(_ring_kernel), n,
                                    rq.Simulator(device=cuda), theta,
                                    _tfim(n), return_value=True)
-    assert fused_sv.LAUNCHES - before[0] >= 2 * n
+    assert fused_sv.LAUNCHES - before[0] >= 2
     assert fused_df64.LAUNCHES == before[1]
+    assert adjoint_step.LAUNCHES - before[2] == n
     cpu_v, cpu_g = rq.adjoint_grad(rq.kernel(_ring_kernel), n,
                                    rq.Simulator(device="cpu"), theta,
                                    _tfim(n), return_value=True)
@@ -1481,3 +1493,132 @@ def test_quantum_volume_through_the_plugin_on_the_card(cuda, stubs):
     want = torch.complex(re, im).numpy()
     got = backend.get_statevector()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# (name, targets, controls, angles, complex planes): the gates of the
+# gradient's users, real and complex planes, controls above and below the
+# targets, both target orders, targets on and above index bits 0-1
+ADJOINT_CASES = [
+    ("RY", (0,), (), (0.7,), False), ("RY", (1,), (), (0.7,), False),
+    ("RY", (13,), (), (0.7,), False), ("RY", (19,), (), (0.7,), True),
+    ("RX", (5,), (), (1.3,), False), ("RX", (0,), (), (1.3,), True),
+    ("RZ", (0,), (), (-0.4,), True), ("RZ", (11,), (3,), (-0.4,), False),
+    ("CRY", (0,), (17,), (2.1,), False), ("CRY", (9,), (1,), (2.1,), True),
+    ("CRY", (1,), (0,), (2.1,), True),
+    ("RZZ", (0, 1), (), (0.9,), True), ("RZZ", (1, 0), (), (0.9,), False),
+    ("RZZ", (18, 3), (), (0.9,), False), ("RZZ", (0, 12), (7,), (0.9,), True),
+    ("RZZ", (6, 1), (0,), (0.9,), True),
+    ("U3", (2,), (0, 15), (0.3, -1.1, 2.5), True),
+    ("U3", (1,), (), (0.3, -1.1, 2.5), False),
+]
+
+
+def _adjoint_inputs(cuda, n, name, targets, controls, angles, complex_,
+                    seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+
+    def planes():
+        re = torch.randn(1 << n, generator=gen, device=cuda)
+        im = torch.randn(1 << n, generator=gen, device=cuda) \
+            if complex_ else None
+        scale = float(re.double().square().sum() + (
+            0 if im is None else im.double().square().sum())) ** -0.5
+        return re.mul_(scale), None if im is None else im.mul_(scale)
+
+    u = gates.gate_matrix({"CRY": "RY"}.get(name, name), angles)
+    d = u.shape[0]
+    v = np.zeros((1, 4, 4), np.complex128)
+    v[0, :d, :d] = u.conj().T
+    step = adjoint_step.plan(n, controls, targets)
+    return planes(), planes(), adjoint_step.pack(v, [step.swap])[0], step
+
+
+def _copy(pair):
+    return tuple(None if p is None else p.clone() for p in pair)
+
+
+@pytest.mark.parametrize("n", [20, 22])
+@pytest.mark.parametrize("case", ADJOINT_CASES, ids=lambda c: "-".join(
+    [c[0], "t" + "_".join(map(str, c[1])), "c" + "_".join(map(str, c[2])),
+     "complex" if c[4] else "real"]))
+def test_adjoint_step_kernel_matches_plain(cuda, n, case):
+    """Planes within 1e-6 of max|amp|, M within 1e-9 of sum|M| (the
+    kernel's float64 sums against the plain version's, in another
+    order), and a second launch gives the same bits."""
+    ket, bra, v, step = _adjoint_inputs(cuda, n, *case, seed=n)
+    want_m = torch.zeros(2, 4, 4, dtype=torch.float64, device=cuda)
+    want = adjoint_step.apply_reference(_copy(ket), _copy(bra), v, step,
+                                        want_m)
+    before = adjoint_step.LAUNCHES
+    got_m, again_m = torch.zeros_like(want_m), torch.zeros_like(want_m)
+    got = adjoint_step.apply(_copy(ket), _copy(bra), v, step, got_m)
+    again = adjoint_step.apply(_copy(ket), _copy(bra), v, step, again_m)
+    torch.cuda.synchronize()
+    assert adjoint_step.LAUNCHES - before == 2
+    top = max(float(p.abs().max()) for pair in want for p in pair
+              if p is not None)
+    for gp, wp, ap in zip(got, want, again):
+        for g, w, a in zip(gp, wp, ap):
+            assert (g is None) == (w is None) == (a is None)
+            if w is not None:
+                assert float((g - w).abs().max()) <= 1e-6 * top
+                assert torch.equal(g, a)
+    assert float((got_m - want_m).abs().max()) <= \
+        1e-9 * float(want_m.abs().sum())
+    assert torch.equal(got_m, again_m)
+
+
+def test_adjoint_step_refuses_what_it_cannot_take(cuda):
+    n = 12
+    ket, bra, v, step = _adjoint_inputs(cuda, n, "RY", (3,), (), (0.7,),
+                                        False, seed=1)
+    out = torch.zeros(2, 4, 4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        adjoint_step.apply((ket[0][::2].repeat(2)[::2], None), bra, v, step,
+                           out)
+    with pytest.raises(ValueError):
+        adjoint_step.apply((ket[0].double(), None), (bra[0].double(), None),
+                           v, step, out)
+    with pytest.raises(ValueError):
+        adjoint_step.apply(ket, bra, v, adjoint_step.plan(n + 1, (), (3,)),
+                           out)
+    with pytest.raises(ValueError):
+        adjoint_step.apply(ket, bra, v, step, out.float())
+    with pytest.raises(ValueError):
+        adjoint_step.plan(n, (), (0, 1, 2))
+
+
+def test_ring26_gradient_holds_to_the_float64_adjoint(cuda):
+    """The gradient cell's request, through ``adjoint_grad``, within the
+    cell's limits of the benchmark's float64 adjoint reference, every one
+    of its 208 angles' steps served by the adjoint step kernel."""
+    import os
+    import sys
+
+    from rocquantum_tpu_torch.utils import profiling
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from portbench.circuits import basic_entangler
+    from portbench.observables import tfim
+    from portbench.reference import adjoint
+
+    n, layers = 26, 8
+    theta = np.random.default_rng(2026).uniform(0, 2 * np.pi, n * layers)
+    gates_ = basic_entangler.gates({"num_qubits": n, "layers": layers,
+                                    "rotation": "RY"})
+    terms = tfim.terms(n, 1.0, 0.5)
+    before = dict(profiling.COUNTERS)
+    value, grads = rq.adjoint_grad(rq.kernel(_ring_kernel), n,
+                                   rq.Simulator(device=cuda), theta,
+                                   _tfim(n), return_value=True)
+    steps = {k: profiling.COUNTERS[k] - before[k]
+             for k in ("adjoint_steps", "adjoint_kernel_steps")}
+    assert steps == {"adjoint_steps": n * layers,
+                     "adjoint_kernel_steps": n * layers}
+    want_e, want_g = adjoint.gradient(n, gates_, theta, terms,
+                                      torch.float64, [cuda])
+    scale = sum(abs(c) for c, _ in terms)
+    assert abs(value - want_e) / scale <= 2e-6
+    assert float(np.abs(np.asarray(grads, np.float64) - want_g).max()) \
+        / scale <= 3e-6
