@@ -883,8 +883,7 @@ def flat_request_parts(interpreter, sv, fused_sv, fn, plan, theta, n, dev):
     def blocks():
         re, im = planes
         for item in plan:
-            re, im = interpreter._apply_pallas_block_pair(re, im, item,
-                                                          params, n)
+            re, im = interpreter._run_block((re, im), item, params, n)
 
     out["kernel"] = best_ms(blocks, reps=2)
     del state, planes
@@ -4121,8 +4120,8 @@ def dense2q_phase():
             ops.append(GateOp("UNITARY", (int(perm[2 * w]),
                                           int(perm[2 * w + 1])), (), (), u))
     (block,) = interpreter.plan_items(ops, n)
-    kinds, supports, gm, _, dm = interpreter.pallas_block_specs_dense(
-        block, None)
+    kinds, supports, gm, _, dm = interpreter._block_specs(
+        block, None, fused_sv)
     plan = interpreter.kernel_plan(n, kinds, supports,
                                    complex_carry=True)
     passes = []

@@ -37,8 +37,8 @@ reversible sweep (autodiff.py) through ``torch.autograd``.
 
 from __future__ import annotations
 
-import functools
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -70,26 +70,79 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def _zero_state(n: int, device, precision: str, df64: bool):
-    """|0...0> as the state a Circuit carries in ``precision``: a real
-    float32 plane, a real float64 plane for the double-float engine, else
-    the full float64 pair of the exact engine."""
-    if precision == "single":
-        return init_real(n, device), None
-    re = init_real64(n, device)
-    return (re, None) if df64 else (re, torch.zeros_like(re))
+class _Engine(NamedTuple):
+    """An engine of :func:`_engine`: its name (``"pair32"``, ``"flat"``,
+    ``"df64"`` or ``"exact"``), the dtype of its parameter values,
+    ``zero()``, which makes its |0...0>, and ``compile(ir, fuse=True,
+    max_fuse=2)``, which returns its ``run(state, values) -> state`` for
+    an IR."""
+    name: str
+    dtype: type
+    zero: Callable
+    compile: Callable
 
 
-def _zero_batch(n: int, b: int, device, precision: str):
-    """|0...0> in each of b elements: a complex64 ``(b, 2^n)`` tensor in
-    single precision, else the exact float64 pair of ``(b, 2^n)``
-    planes (the JAX package batches neither the real carry nor df64)."""
-    if precision == "single":
-        state = torch.zeros((b, 1 << n), dtype=torch.complex64,
-                            device=device)
-        state[:, 0] = 1.0
-        return state
-    return pairsim.init_pair_batched(n, b, torch.float64, device)
+def _engine(n: int, device=None, batch_size: int = 1, sharding=None,
+            f64: Optional[bool] = None) -> _Engine:
+    """The engine of an n-qubit state of ``batch_size`` elements, sharded
+    by ``sharding`` or on ``device``, by the precision in force:
+
+    - unbatched on one card: ``"pair32"`` (a real float32 plane) in
+      ``"single"``, ``"df64"`` (a real float64 plane) in ``"df64"``,
+      ``"exact"`` (the float64 pair) in ``"double"``;
+    - batched on one card: ``"flat"`` (complex64 ``(b, 2^n)``) in
+      ``"single"``, else ``"exact"`` (a float64 pair batch): the JAX
+      package batches neither the real carry nor df64;
+    - sharded: ``"flat"`` (complex64 shards) in ``"single"``, ``"df64"``
+      (a real float64 plane) unbatched in ``"df64"``, else ``"exact"``.
+
+    ``f64`` says whether the state is float64, for a state made before
+    (None: one made now, float64 unless the precision is ``"single"``);
+    a float64 state takes df64 when ``config.df64_enabled()`` holds now."""
+    if f64 is None:
+        f64 = config.get_precision() != "single"
+    b = None if batch_size == 1 else batch_size
+    if not f64:
+        name = "pair32" if sharding is None and b is None else "flat"
+    else:
+        name = "df64" if config.df64_enabled() and b is None else "exact"
+
+    def zero():
+        if name == "flat":
+            if sharding is not None:
+                return sharded.init_state(n, sharding, torch.complex64,
+                                          "complex", b)
+            state = torch.zeros((b, 1 << n), dtype=torch.complex64,
+                                device=device)
+            state[:, 0] = 1.0
+            return state
+        if name == "pair32":
+            return init_real(n, device), None
+        if sharding is not None:
+            return sharded.init_state(n, sharding, torch.float64,
+                                      "real" if name == "df64" else "pair",
+                                      b)
+        if b is not None:
+            return pairsim.init_pair_batched(n, b, torch.float64, device)
+        re = init_real64(n, device)
+        return (re, None) if name == "df64" else (re, torch.zeros_like(re))
+
+    def compile(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2):
+        if name == "pair32":
+            fn = compile_pair32_ir(ir, fuse=fuse, max_fuse=max_fuse)
+            return lambda state, p: tuple(fn(state, p))
+        if name == "flat":
+            return compile_ir(ir, fuse=fuse, max_fuse=max_fuse,
+                              batched=b is not None, sharding=sharding)
+        if name == "df64":
+            return compile_df64_fused_ir(ir, fuse=fuse, max_fuse=max_fuse,
+                                         sharding=sharding)
+        ops = list(ir.ops)
+        if sharding is not None:
+            return lambda state, p: run_ops_f64_sharded(state, ops, p)
+        return lambda state, p: run_ops_f64(*state, ops, p)
+
+    return _Engine(name, np.float64 if f64 else np.float32, zero, compile)
 
 
 def check_mesh(mesh):
@@ -100,19 +153,6 @@ def check_mesh(mesh):
     if SV_AXIS not in mesh.axis_names:
         raise ValueError(f"sharded circuits need an '{SV_AXIS}' mesh axis; "
                          f"got {mesh.axis_names}")
-
-
-def _zero_sharded(n: int, sharding, precision: str, df64: bool,
-                  batch_size: int):
-    """|0...0> born sharded, as a sharded Circuit carries it: complex64 in
-    single precision (the JAX package's sharded carry), a real float64
-    plane for the double-float engine, else the full float64 pair; a batch
-    of b elements in each cell's rows."""
-    b = None if batch_size == 1 else batch_size
-    if precision == "single":
-        return sharded.init_state(n, sharding, torch.complex64, "complex", b)
-    planes = "real" if df64 and b is None else "pair"
-    return sharded.init_state(n, sharding, torch.float64, planes, b)
 
 
 # scheduled flushes by (queue structure, qubits, global bits, layout)
@@ -410,17 +450,14 @@ class Circuit(_GateMethods):
             return (self.device,)
         return self._sharding().devices
 
+    def _engine(self, f64: Optional[bool] = None) -> _Engine:
+        """:func:`_engine` of this circuit's state (``f64``: its own)."""
+        return _engine(self.num_qubits, self.device, self.batch_size,
+                       self._sharding(), f64)
+
     def _zero(self):
         """|0...0> in the precision set now (see :attr:`state`)."""
-        if self.mesh is not None:
-            return _zero_sharded(self.num_qubits, self._sharding(),
-                                 config.get_precision(),
-                                 config.df64_enabled(), self.batch_size)
-        if self.batch_size > 1:
-            return _zero_batch(self.num_qubits, self.batch_size, self.device,
-                               config.get_precision())
-        return _zero_state(self.num_qubits, self.device,
-                           config.get_precision(), config.df64_enabled())
+        return self._engine().zero()
 
     @property
     def state(self):
@@ -487,60 +524,27 @@ class Circuit(_GateMethods):
         self._is_dirty = True
 
     def _flush_plan(self):
-        """``(run, values, layout)`` for the queued gates: SWAPs become
-        layout relabels, concrete angles become a parameter vector (float32
-        on a float32 state, float64 on a float64 one) so structurally equal
-        flushes share one cached plan; ``run(state, values) -> state`` runs
-        it on the engine the state's precision selects. A batch keeps its
-        SWAPs as gates, as the JAX package's batched flush does, and runs
-        the batched flat engine or the exact one."""
-        ops, values = parametrize(self._gate_queue)
-        if self.mesh is not None:
-            return self._sharded_flush_plan(ops, values)
-        if self.batch_size > 1:
-            if self._is_complex_batch():
-                fn = compile_ir(CircuitIR(self.num_qubits, ops),
-                                fuse=self._fuse, max_fuse=self._max_fuse,
-                                batched=True)
-                return fn, np.asarray(values, np.float32), self._layout
-            return (lambda state, p: run_ops_f64(*state, ops, p),
-                    np.asarray(values, np.float64), self._layout)
-        ops, layout = elide_swaps(ops, self._layout)
-        ir = CircuitIR(self.num_qubits, ops)
-        if not self._is_f64():
-            fn = compile_pair32_ir(ir, fuse=self._fuse,
-                                   max_fuse=self._max_fuse)
-            return (lambda state, p: tuple(fn(state, p)),
-                    np.asarray(values, np.float32), layout)
-        values = np.asarray(values, np.float64)
-        if config.df64_enabled():
-            fn = compile_df64_fused_ir(ir, fuse=self._fuse,
-                                       max_fuse=self._max_fuse)
-            return fn, values, layout
-        return (lambda state, p: run_ops_f64(*state, ops, p), values,
-                layout)
-
-    def _sharded_flush_plan(self, ops, values):
-        """:meth:`_flush_plan` on a mesh: the queue scheduled for locality
+        """``(run, values, layout)`` for the queued gates on the engine of
+        the state (:func:`_engine`): concrete angles become a parameter
+        vector of the engine's dtype, so structurally equal flushes share
+        one cached plan. An unbatched state's SWAPs become layout relabels;
+        a batch keeps them as gates, as the JAX package's batched flush
+        does; on a mesh the queue is scheduled for locality
         (schedule_for_sharding from the current layout, cached by
-        structure), then ``compile_ir(sharding=...)`` on a complex64
-        state, the df64 engine on an unbatched float64 one, else the exact
-        engine."""
+        structure)."""
+        ops, values = parametrize(self._gate_queue)
         sharding = self._sharding()
-        ops, layout = _schedule(ops, self.num_qubits, sharding.n_global,
-                                self._layout)
-        ir = CircuitIR(self.num_qubits, ops)
-        if not self._is_f64():
-            fn = compile_ir(ir, fuse=self._fuse, max_fuse=self._max_fuse,
-                            batched=self.batch_size > 1, sharding=sharding)
-            return fn, np.asarray(values, np.float32), layout
-        values = np.asarray(values, np.float64)
-        if config.df64_enabled() and self.batch_size == 1:
-            return (compile_df64_fused_ir(ir, fuse=self._fuse,
-                                          max_fuse=self._max_fuse,
-                                          sharding=sharding), values, layout)
-        return (lambda state, p: run_ops_f64_sharded(state, ops, p), values,
-                layout)
+        engine = self._engine(f64=self._is_f64())
+        if sharding is not None:
+            ops, layout = _schedule(ops, self.num_qubits, sharding.n_global,
+                                    self._layout)
+        elif self.batch_size > 1:
+            layout = self._layout
+        else:
+            ops, layout = elide_swaps(ops, self._layout)
+        run = engine.compile(CircuitIR(self.num_qubits, ops), self._fuse,
+                             self._max_fuse)
+        return run, np.asarray(values, engine.dtype), layout
 
     def flush(self):
         """Run the queued gates (reference api.py:74-89) through
@@ -880,16 +884,8 @@ def compile_program(ir: CircuitIR, simulator: Optional[Simulator] = None,
     for op in ir.ops:
         c._enqueue(op.name, op.targets, op.controls, op.params, op.matrix,
                    op.is_adjoint)
-    if mesh is not None:
-        init_fn = functools.partial(_zero_sharded, ir.num_qubits,
-                                    c._sharding(), config.get_precision(),
-                                    config.df64_enabled(), 1)
-    else:
-        init_fn = functools.partial(_zero_state, ir.num_qubits, c.device,
-                                    config.get_precision(),
-                                    config.df64_enabled())
     run, values, layout = c._flush_plan()
-    return CompiledProgram(c, (run, tuple(layout)), init_fn, values,
+    return CompiledProgram(c, (run, tuple(layout)), c._engine().zero, values,
                            observable)
 
 

@@ -18,16 +18,16 @@ Every U^dagger step runs the same engine as the forward pass. In single
 precision that is the fused kernel (``compile_pair32_ir`` on the adjoint
 ops, every eligible run a kernel block) for each maximal run of
 parameter-free gates; plans are cached by structure. A parameterized gate
-of at most two targets on CUDA float32 planes takes one launch of the
-adjoint step kernel (``ops/adjoint_step.py``): ``U^dagger`` on the ket,
-the gate's ``M`` in float64 and ``U^dagger`` on the bra in one pass. Other
-parameterized gates, and every gate on CPU planes, run their step as two
-one-gate kernel steps (planned with the gate's parameters renumbered from
-0, so the one-gate steps of an ansatz share one plan per (gate, qubit))
-around plain-torch sums (:func:`_correlation`). In double precision
-(``"double"`` and ``"df64"``) both directions run the exact complex128
-engine (``interpreter.run_ops_f64``), as the JAX package differentiates
-its exact float64 pair engine.
+of at most two targets takes one adjoint step (``ops/adjoint_step.py``):
+``U^dagger`` on the ket, the gate's ``M`` in float64 and ``U^dagger`` on
+the bra in one pass, one kernel launch on the card and its plain version
+on the CPU. In a sweep with a wider parameterized gate each gate runs its
+step as two one-gate kernel steps (planned with the gate's parameters
+renumbered from 0, so the one-gate steps of an ansatz share one plan per
+(gate, qubit)) around plain-torch sums (:func:`_correlation`). In double
+precision (``"double"`` and ``"df64"``) both directions run the exact
+complex128 engine (``interpreter.run_ops_f64``), as the JAX package
+differentiates its exact float64 pair engine.
 
 Each gate's step forms the (2^m, 2^m) matrix ``M_ac = sum_r conj(bra[r,
 a]) ket[r, c]`` over its m targets (where every control is 1) on the
@@ -313,10 +313,9 @@ class ReversibleExecute(torch.autograd.Function):
         theta = torch.tensor(values, dtype=_F64, requires_grad=True)
         with torch.enable_grad():
             us = table.matrices(theta)
-        # one launch a step for what the adjoint step kernel takes
-        kernel = (not sweep.exact and table.size == 4
-                  and adjoint_step.takes(ket[0])
-                  and adjoint_step.takes(bra[0]))
+        # float32 planes: one adjoint step a gate of at most two targets
+        # (one launch on the card, its plain version on the CPU)
+        kernel = not sweep.exact and table.size == 4
         if kernel:
             vs = adjoint_step.pack(
                 us.detach().numpy().conj().transpose(0, 2, 1), table.swaps)

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -164,21 +164,25 @@ def _phase_factor(state, values, desc):
     return (state.view(dims) * f.reshape(bshape)).reshape(state.shape)
 
 
+def _d2_values(op: GateOp, params) -> np.ndarray:
+    """The 2x2 of diagonal entries d[bit_t0, bit_t1] of a D2M or RZZ
+    op."""
+    if _split_op(op)[0] == "D2M":
+        m = np.asarray(op.matrix, np.complex128)
+        return np.conj(m) if op.is_adjoint else m
+    (theta,) = _resolve_params(op, params)
+    if op.is_adjoint:
+        theta = -theta
+    em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
+    return np.array([[em, ep], [ep, em]])
+
+
 def _diag_factor(op: GateOp, params):
     """(qubits in descending order, the op's diagonal as a complex128
     ``(2,) * k`` factor over them) of a diagonal op."""
     base, controls, targets = _split_op(op)
     if base in ("D2M", "RZZ"):
-        if base == "D2M":
-            m = np.asarray(op.matrix, np.complex128)
-            if op.is_adjoint:
-                m = np.conj(m)
-        else:
-            (theta,) = _resolve_params(op, params)
-            if op.is_adjoint:
-                theta = -theta
-            em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
-            m = np.array([[em, ep], [ep, em]])
+        m = _d2_values(op, params)
         # factor axes follow DESCENDING qubit order
         return sorted(targets, reverse=True), \
             (m if targets[0] > targets[1] else m.T)
@@ -238,128 +242,13 @@ def _pack(m: np.ndarray) -> np.ndarray:
     return np.stack([np.real(m), np.imag(m)], axis=-1).astype(np.float32)
 
 
-def _block_matrices(block: PallasBlock, params, exact_real: bool = False):
-    """(kinds, supports, mats, real_flags) for a PallasBlock's ops, with
-    each gate's 2x2 as a host complex128 matrix: kind "U" (dense 1q
-    matrix), "CNOT" (control, target), "CU" (controlled dense 1q) or "D2" —
-    a two-qubit diagonal given as the 2x2 of diagonal entries d[bit_a,
-    bit_b] — or its 4x4 for kind "U4" (dense 2q matrix on (targets[0],
-    targets[1]), targets[0] the low bit of its index; never real, so a
-    block with one runs on the complex carry). ``exact_real`` selects the
-    double-precision realness rule (:func:`_real_flag`)."""
-    mats, kinds, supports, real_flags = [], [], [], []
-    for op in block.ops:
-        base, controls, targets = _split_op(op)
-        if is_dense2q(op):
-            kinds.append("U4")
-            supports.append((targets[0], targets[1]))
-            mats.append(_base_matrix(op, params))
-            real_flags.append(False)
-        elif base == "D2M":
-            m = np.asarray(op.matrix, np.complex128)
-            if op.is_adjoint:
-                m = np.conj(m)
-            kinds.append("D2")
-            supports.append((targets[0], targets[1]))
-            mats.append(m)
-            real_flags.append(_real_flag(op, m, exact_real))
-        elif base == "X" and len(controls) == 1 and op.matrix is None:
-            kinds.append("CNOT")
-            supports.append((controls[0], targets[0]))
-            mats.append(np.eye(2))  # placeholder, unused by the CNOT path
-            real_flags.append(True)
-        elif (op.matrix is None and len(controls) == 1
-              and base in _D2_BASES):
-            d = _diag_vector(op, params)
-            kinds.append("D2")
-            supports.append((controls[0], targets[0]))
-            mats.append(np.stack([np.ones(2), d]))
-            real_flags.append(base == "Z")  # CZ is the only real member
-        elif (op.matrix is None and not controls and len(targets) == 1
-              and base in _D2_BASES):
-            # plain 1q diagonal as D2(q, q): resolved per block at any qubit
-            d = _diag_vector(op, params)
-            kinds.append("D2")
-            supports.append((targets[0], targets[0]))
-            mats.append(np.array([[d[0], d[0]], [d[1], d[1]]]))
-            real_flags.append(base == "Z")
-        elif op.matrix is None and base == "RZZ" and not controls:
-            (theta,) = _resolve_params(op, params)
-            if op.is_adjoint:
-                theta = -theta
-            em, ep = np.exp(-0.5j * theta), np.exp(0.5j * theta)
-            kinds.append("D2")
-            supports.append((targets[0], targets[1]))
-            mats.append(np.array([[em, ep], [ep, em]]))
-            real_flags.append(False)
-        else:
-            if len(controls) == 1 and len(targets) == 1:
-                kinds.append("CU")
-                supports.append((controls[0], targets[0]))
-            else:
-                kinds.append("U")
-                supports.append((targets[0],))
-            m = _base_matrix(op, params)
-            mats.append(m)
-            real_flags.append(_real_flag(op, m, exact_real))
-    return kinds, supports, mats, real_flags
-
-
-def pallas_block_specs(block: PallasBlock, params):
-    """(kinds, supports, gate_mats, real_flags) for a PallasBlock's ops
-    (see :func:`_block_matrices`); ``gate_mats`` is a host float32
-    (K, 2, 2, 2) array [k, row, col, re/im]. A block with U4 gates needs
-    :func:`pallas_block_specs_dense`."""
-    return pallas_block_specs_dense(block, params)[:4]
-
-
-def pallas_block_specs_dense(block: PallasBlock, params):
-    """:func:`pallas_block_specs` and ``dense_mats``: the U4 gates' 4x4
-    matrices as a host float32 (K, 4, 4, 2) array (other rows zero, their
-    ``gate_mats`` rows zero), or None when the block has none."""
-    kinds, supports, mats, real_flags = _block_matrices(block, params)
-    if "U4" not in kinds:
-        return (kinds, supports, np.stack([_pack(m) for m in mats]),
-                real_flags, None)
-    gm = np.zeros((len(kinds), 2, 2, 2), np.float32)
-    dm = np.zeros((len(kinds), 4, 4, 2), np.float32)
-    for k, (kind, m) in enumerate(zip(kinds, mats)):
-        if kind == "U4":
-            dm[k] = _pack(m)
-        else:
-            gm[k] = _pack(m)
-    return kinds, supports, gm, real_flags, dm
-
-
-def pallas_block_specs_df64(block: PallasBlock, params):
-    """:func:`pallas_block_specs` for the df64 kernel: the same kinds and
-    supports, every matrix built in complex128 and split hi/lo into a
-    (K, 2, 2, 4) float32 array [k, row, col, (re_hi, re_lo, im_hi,
-    im_lo)]."""
-    kinds, supports, mats, real_flags = _block_matrices(block, params,
-                                                        exact_real=True)
-    return kinds, supports, fused_df64.pack_gate_mats_df64(mats), real_flags
-
-
-def _spec_anchors(kinds, supports, limit):
-    """Per-gate ANCHOR qubits — what must fit the kernel window or the
-    pass's pair set. Diagonals (D2) anchor nothing; a CNOT/CU control at or
-    above ``limit`` is a per-block scalar, so only its target anchors."""
-    anchors = []
-    for k, s in zip(kinds, supports):
-        if k == "D2":
-            anchors.append(())
-        elif k in ("CNOT", "CU") and s[0] >= limit:
-            anchors.append((s[1],))
-        else:
-            anchors.append(tuple(s))
-    return anchors
-
-
 def _classify_spec(op: GateOp):
-    """Structure-only (kind, support) for one kernel-eligible op — the
-    twin of :func:`pallas_block_specs`'s branch order without building any
-    matrix (parameter values never change a plan)."""
+    """(kind, support) of one kernel-eligible op, from its structure alone
+    (parameter values never change a plan), the only map from a gate to a
+    kernel kind: "U4" (dense 2q matrix on (targets[0], targets[1]),
+    targets[0] the low bit of its index), "D2" (a two-qubit diagonal on
+    (a, b), a plain 1q diagonal as (q, q)), "CNOT" or "CU" (controlled
+    dense 1q) on (control, target), else "U" (dense 1q) on (target,)."""
     base, controls, targets = _split_op(op)
     if is_dense2q(op):
         return "U4", (targets[0], targets[1])
@@ -377,6 +266,88 @@ def _classify_spec(op: GateOp):
     if len(controls) == 1 and len(targets) == 1:
         return "CU", (controls[0], targets[0])
     return "U", (targets[0],)
+
+
+def _kernel_gate(op: GateOp, kind: str, params, exact_real: bool):
+    """(host complex128 matrix, real flag) of ``op`` as the kernel applies
+    it under its ``kind``: the 4x4 of a U4 (never real, so its block runs
+    on the complex carry), the 2x2 of a U or CU, the 2x2 of diagonal
+    entries d[bit_a, bit_b] of a D2, an unused identity for a CNOT.
+    ``exact_real`` selects the double-precision realness rule
+    (:func:`_real_flag`)."""
+    if kind == "CNOT":
+        return np.eye(2), True
+    if kind != "D2":
+        m = _base_matrix(op, params)
+        return m, kind != "U4" and _real_flag(op, m, exact_real)
+    base, controls, _ = _split_op(op)
+    if base in ("D2M", "RZZ"):
+        m = _d2_values(op, params)
+        return m, base == "D2M" and _real_flag(op, m, exact_real)
+    d = _diag_vector(op, params)
+    if controls:
+        return np.stack([np.ones(2), d]), base == "Z"
+    # plain 1q diagonal as D2(q, q): resolved per block at any qubit
+    return np.array([[d[0], d[0]], [d[1], d[1]]]), base == "Z"
+
+
+def _block_specs(block: PallasBlock, params, kernel):
+    """(kinds, supports, gate_mats, real_flags, dense_mats) of a
+    PallasBlock for the fused kernel of module ``kernel``, each gate's
+    matrix built under the kind it was classified as (its plan's, or, for
+    a block no plan was made for, :func:`_classify_spec`'s now).
+
+    ops/fused_sv.py: ``gate_mats`` host float32 (K, 2, 2, 2) [k, row, col,
+    re/im] and ``dense_mats`` the U4 gates' (K, 4, 4, 2), None when the
+    block has none (a gate's row is zero in the array that is not its
+    own). ops/fused_df64.py: every matrix built in complex128 and split
+    hi/lo into (K, 2, 2, 4) [k, row, col, (re_hi, re_lo, im_hi, im_lo)],
+    the double-precision realness rule, no ``dense_mats``."""
+    if block.plan is not None:
+        kinds, supports = block.plan.kinds, block.plan.supports
+    else:
+        kinds, supports = zip(*map(_classify_spec, block.ops))
+    df64 = kernel is fused_df64
+    mats, flags = zip(*(_kernel_gate(op, kind, params, df64)
+                        for op, kind in zip(block.ops, kinds)))
+    if df64:
+        return kinds, supports, fused_df64.pack_gate_mats_df64(mats), \
+            flags, None
+    if "U4" not in kinds:
+        return kinds, supports, _pack(np.asarray(mats)), flags, None
+    gm = np.zeros((len(kinds), 2, 2, 2), np.float32)
+    dm = np.zeros((len(kinds), 4, 4, 2), np.float32)
+    for k, (kind, m) in enumerate(zip(kinds, mats)):
+        (dm if kind == "U4" else gm)[k] = _pack(m)
+    return kinds, supports, gm, flags, dm
+
+
+def pallas_block_specs(block: PallasBlock, params):
+    """(kinds, supports, gate_mats, real_flags) of a PallasBlock for the
+    f32 kernel (:func:`_block_specs`; a U4 gate's row of ``gate_mats`` is
+    zero)."""
+    return _block_specs(block, params, fused_sv)[:4]
+
+
+def pallas_block_specs_df64(block: PallasBlock, params):
+    """:func:`pallas_block_specs` for the df64 kernel: the same kinds and
+    supports, (K, 2, 2, 4) hi/lo ``gate_mats``."""
+    return _block_specs(block, params, fused_df64)[:4]
+
+
+def _spec_anchors(kinds, supports, limit):
+    """Per-gate ANCHOR qubits — what must fit the kernel window or the
+    pass's pair set. Diagonals (D2) anchor nothing; a CNOT/CU control at or
+    above ``limit`` is a per-block scalar, so only its target anchors."""
+    anchors = []
+    for k, s in zip(kinds, supports):
+        if k == "D2":
+            anchors.append(())
+        elif k in ("CNOT", "CU") and s[0] >= limit:
+            anchors.append((s[1],))
+        else:
+            anchors.append(tuple(s))
+    return anchors
 
 
 @functools.lru_cache(maxsize=1024)
@@ -409,80 +380,75 @@ def kernel_plan(n: int, kinds, supports, kernel=fused_sv,
                        reach, pairs, kernel.window_bits(n))
 
 
+class BlockPlan(NamedTuple):
+    """A kernel block's structure, worked out once when its circuit is
+    planned: the module of the fused kernel that runs it, each gate's kind
+    and support (:func:`_classify_spec`), and its kernel passes
+    (:func:`kernel_plan`) indexed by the carry, real then complex."""
+    kernel: object
+    kinds: tuple
+    supports: tuple
+    passes: tuple
+
+
+def _plan_block(block: PallasBlock, n: int, kernel) -> PallasBlock:
+    """``block`` with its :class:`BlockPlan` on ``kernel`` for an n-qubit
+    state."""
+    kinds, supports = zip(*map(_classify_spec, block.ops))
+    block.plan = BlockPlan(kernel, kinds, supports, tuple(
+        kernel_plan(n, kinds, supports, kernel, carry)
+        for carry in (False, True)))
+    return block
+
+
 def block_pass_count(block: PallasBlock, n: int, kernel=fused_sv) -> int:
     """Planned kernel passes of one block on an n-qubit state (real
     carry)."""
-    kinds, supports = zip(*(_classify_spec(op) for op in block.ops))
+    kinds, supports = zip(*map(_classify_spec, block.ops))
     return len(kernel_plan(n, kinds, supports, kernel))
 
 
-def _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
-                      num_qubits: int, device=None, dense_mats=None):
-    """Run prepared gate specs through the fused kernel in planned passes.
-    ``im=None`` is the real plane (all-real gates only); ``re=None`` starts
-    the first pass from |0...0> on ``device``."""
-    plan = kernel_plan(num_qubits, kinds, supports,
-                       complex_carry=im is not None)
-    return relabel.execute_plan(re, im, plan, gm, num_qubits, kinds=kinds,
-                                real_flags=real_flags, device=device,
-                                dense_mats=dense_mats)
+def _complex_planes(planes, n: int = None, device=None):
+    """Planes with the imaginary part materialized, zeros for a real carry:
+    ``(re, im)`` float32 (``re=None``, the |0...0> start on ``device``,
+    made first) or df64 ``(rh, rl, ih, il)``."""
+    if planes[0] is None:
+        planes = (init_real(n, device), None)
+    half = len(planes) // 2
+    return planes[:half] + tuple(torch.zeros_like(r) if i is None else i
+                                 for r, i in zip(planes[:half],
+                                                 planes[half:]))
 
 
-def _apply_pallas_block_pair(re, im, block: PallasBlock, params,
-                             num_qubits: int, device=None):
-    """Run one PallasBlock on a (re, im) float32 state. A complex gate
-    entering a real carry materializes the imaginary plane first."""
+def _run_block(planes, block: PallasBlock, params, n: int, device=None):
+    """Run one planned PallasBlock through its kernel's held passes, its
+    gate matrices built now (the host span ``rq.run.gates``). ``planes``
+    are ``(re, im)`` float32 for ops/fused_sv.py (``re=None`` starts the
+    first pass from |0...0> on ``device``) or ``(rh, rl, ih, il)`` for
+    ops/fused_df64.py; a None imaginary part is the real carry, which a
+    complex gate turns complex first."""
+    kernel, kinds, _, passes = block.plan
     with profiling.span("rq.run.gates"):
-        kinds, supports, gm, real_flags, dm = pallas_block_specs_dense(
-            block, params)
+        _, _, gm, flags, dm = _block_specs(block, params, kernel)
     if dm is not None:
         dense = kinds.count("U4")
         profiling.count("dense2q_gates", dense)
         profiling.count("dense2q_kernel_gates", dense)
-    if not all(real_flags):
-        if re is None:
-            re = init_real(num_qubits, device)
-        if im is None:
-            im = torch.zeros_like(re)
-    return _run_pallas_specs(re, im, kinds, supports, gm, real_flags,
-                             num_qubits, device=device, dense_mats=dm)
-
-
-def _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
-                           num_qubits: int):
-    """Run prepared df64 gate specs through the df64 kernel in planned
-    passes on the df64 kernel's own geometry."""
-    plan = kernel_plan(num_qubits, kinds, supports, fused_df64)
+    if not all(flags):
+        planes = _complex_planes(planes, n, device)
+    plan = passes[planes[-1] is not None]
+    if kernel is fused_sv:
+        return relabel.execute_plan(*planes, plan, gm, n, kinds=kinds,
+                                    real_flags=flags, device=device,
+                                    dense_mats=dm)
     for item in plan:
         idx = list(item.gate_idx)
         specs = tuple((kinds[i],) + tuple(p)
                       for i, p in zip(idx, item.positions))
-        planes = fused_df64.apply_fused_layer_df64(
+        planes = kernel.apply_fused_layer_df64(
             *planes, specs, gm[idx], pair_bits=item.pair_bits,
-            real_flags=tuple(real_flags[i] for i in idx))
+            real_flags=tuple(flags[i] for i in idx))
     return planes
-
-
-def _complex_planes(planes):
-    """df64 planes with the imaginary pair materialized (zeros for a real
-    carry)."""
-    rh, rl, ih, il = planes
-    if ih is None:
-        ih, il = torch.zeros_like(rh), torch.zeros_like(rl)
-    return rh, rl, ih, il
-
-
-def _apply_pallas_block_df64(planes, block: PallasBlock, params,
-                             num_qubits: int):
-    """Run one PallasBlock on df64 planes. A complex gate entering a real
-    carry materializes the imaginary planes first."""
-    with profiling.span("rq.run.gates"):
-        kinds, supports, gm, real_flags = pallas_block_specs_df64(block,
-                                                                  params)
-    if not all(real_flags):
-        planes = _complex_planes(planes)
-    return _run_pallas_specs_df64(planes, kinds, supports, gm, real_flags,
-                                  num_qubits)
 
 
 def run_items_df64(planes, items: Sequence, params, n: int):
@@ -492,7 +458,7 @@ def run_items_df64(planes, items: Sequence, params, n: int):
     params = _host_params(params)
     for item in items:
         if isinstance(item, PallasBlock):
-            planes = _apply_pallas_block_df64(planes, item, params, n)
+            planes = _run_block(planes, item, params, n)
             continue
         planes = _complex_planes(planes)
         members = item.ops if isinstance(item, (DiagBlock, FusedBlock)) \
@@ -509,7 +475,7 @@ def execute_df64(planes, ops: Sequence, params=None, fuse: bool = True,
     every gate is real). Returns planes with the same convention."""
     n = sv.num_qubits_of(planes[0])
     return run_items_df64(planes, plan_items(ops, n, fuse, max_fuse,
-                                             dense2q=False), params, n)
+                                             kernel=fused_df64), params, n)
 
 
 def run_ops_f64(re, im, ops: Sequence, params=None):
@@ -588,14 +554,15 @@ def init_real64(n: int, device) -> torch.Tensor:
 
 def plan_items(ops: Sequence, n: int, fuse: bool = True,
                max_fuse: int = 2, every_run: bool = False,
-               kernel: bool = True, low_width: int = 0,
-               high_width: int = 0, dense2q: bool = True) -> list:
+               use_kernel: bool = True, low_width: int = 0,
+               high_width: int = 0, kernel=fused_sv) -> list:
     """The structure-only plan of a gate list: PallasBlocks for the fused
-    kernel (``kernel`` and n >= KERNEL_MIN_QUBITS; dense two-qubit matrices
-    among them unless ``dense2q`` is false, as the df64 kernel needs),
-    then DiagBlocks and FusedBlocks, then (widths > 0) the runs on the
-    lowest ``low_width`` and the highest ``high_width`` qubits merged into
-    dense blocks (passes.consolidate_low/high).
+    kernel of module ``kernel`` (``use_kernel`` and n >=
+    KERNEL_MIN_QUBITS; a gate joins one where its kind is among the
+    kernel's ``KINDS``), each with its :class:`BlockPlan`, then DiagBlocks
+    and FusedBlocks, then (widths > 0) the runs on the lowest ``low_width``
+    and the highest ``high_width`` qubits merged into dense blocks
+    (passes.consolidate_low/high).
 
     A run of kernel-eligible gates becomes a block as the JAX package's
     flush decides it (at least 6 gates, out-of-window gates split off when
@@ -603,14 +570,14 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
     and qubits: the gradient's backward sweep (autodiff.py) runs each
     one-gate and each short parameter-free step on the kernel."""
     items = list(ops)
-    if kernel and n >= KERNEL_MIN_QUBITS:
+    if use_kernel and n >= KERNEL_MIN_QUBITS:
         if every_run:
             items = fuse_pallas_runs(items, n - 1, min_gates=1,
-                                     num_qubits=n, dense2q=dense2q)
+                                     num_qubits=n, kernel=kernel)
         else:
             items = fuse_pallas_runs(items, n - 1, num_qubits=n,
-                                     relabel_reach=fused_sv.window_bits(n),
-                                     dense2q=dense2q)
+                                     relabel_reach=kernel.window_bits(n),
+                                     kernel=kernel)
     if fuse:
         items = fuse_diagonals(items)
         items = plan_fusion(items, max_fuse=max_fuse)
@@ -618,7 +585,8 @@ def plan_items(ops: Sequence, n: int, fuse: bool = True,
         items = consolidate_low(items, low_width)
     if high_width:
         items = consolidate_high(items, high_width, n)
-    return items
+    return [_plan_block(item, n, kernel) if isinstance(item, PallasBlock)
+            else item for item in items]
 
 
 def _apply_item(state: torch.Tensor, item, params) -> torch.Tensor:
@@ -642,8 +610,7 @@ def run_items(re, im, items: Sequence, params, n: int, device=None):
         re = init_real(n, device)
     for item in items:
         if isinstance(item, PallasBlock):
-            re, im = _apply_pallas_block_pair(re, im, item, params, n,
-                                              device=device)
+            re, im = _run_block((re, im), item, params, n, device)
             continue
         if im is None:
             im = torch.zeros_like(re)
@@ -687,7 +654,7 @@ def run_flat(state: torch.Tensor, items: Sequence, params) -> torch.Tensor:
         if isinstance(item, PallasBlock):
             if planes is None:
                 planes, state = sv.state_to_parts(state), None
-            planes = _apply_pallas_block_pair(*planes, item, params, n)
+            planes = _run_block(planes, item, params, n)
             continue
         if planes is not None:
             state, planes = sv.parts_to_state(*planes), None
@@ -727,7 +694,7 @@ def execute(state, ops: Sequence, params=None, fuse: bool = True,
     if state.dtype != torch.complex64:
         return run_ops_exact(state, ops, params)
     items = plan_items(ops, sv.num_qubits_of(state), fuse, max_fuse,
-                       kernel=fuse, low_width=low_width,
+                       use_kernel=fuse, low_width=low_width,
                        high_width=high_width)
     return run_flat(state, items, params)
 
@@ -767,20 +734,25 @@ def parametrize(ops: Sequence[GateOp]):
 _PLAN_CACHE = BoundedCache()
 
 
-def _plan_miss(ops, n, *args, **kwargs):
-    """:func:`plan_items` for a plan the cache did not hold: the host span
-    ``rq.plan`` and one ``plan_misses``."""
-    with profiling.span("rq.plan"):
-        profiling.count("plan_misses")
-        return plan_items(ops, n, *args, **kwargs)
-
-
 def _plan_key(ir: CircuitIR, *extra):
     """Structural cache key of an IR plus the concrete parameter values the
     plan bakes in."""
     baked = tuple(float(p) for op in ir.ops for p in op.params
                   if not isinstance(p, ParamRef))
     return (ir.structural_key(), baked) + extra
+
+
+def _compiled(key, plan, bind):
+    """The run function the plan cache holds under ``key``; on a miss
+    ``plan()`` runs inside the host span ``rq.plan`` with one
+    ``plan_misses``, and ``bind`` of its plan is stored and returned."""
+    run = _PLAN_CACHE.get(key)
+    if run is None:
+        with profiling.span("rq.plan"):
+            profiling.count("plan_misses")
+            items = plan()
+        run = _PLAN_CACHE[key] = bind(items)
+    return run
 
 
 def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
@@ -790,20 +762,18 @@ def compile_pair32_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     structural key (plus any concrete parameter values, which the plan
     bakes in). ``device`` places a state started from ``re=None``;
     ``every_run`` is :func:`plan_items`'."""
-    key = _plan_key(ir, fuse, max_fuse, every_run)
-    cached = _PLAN_CACHE.get(key)
-    if cached is not None:
-        return cached
     n = ir.num_qubits
-    items = _plan_miss(list(ir.ops), n, fuse, max_fuse, every_run)
 
-    def run(pair, params, device=None):
-        re, im = pair
-        return run_items(re, im, items, params, n,
-                         device=device if re is None else re.device)
+    def bind(items):
+        def run(pair, params, device=None):
+            re, im = pair
+            return run_items(re, im, items, params, n,
+                             device=device if re is None else re.device)
+        return run
 
-    _PLAN_CACHE[key] = run
-    return run
+    return _compiled(_plan_key(ir, fuse, max_fuse, every_run),
+                     lambda: plan_items(list(ir.ops), n, fuse, max_fuse,
+                                        every_run), bind)
 
 
 def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
@@ -814,8 +784,8 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     states (:func:`execute`; widths default to :func:`default_widths`),
     cached by structural key plus the concrete parameter values the plan
     bakes in, so two IRs that differ only in angles never share a plan. The
-    complex64 plan is made at the first call; a complex128 state runs every
-    op exactly. ``batched`` takes ``(b, 2^n)`` states and runs the circuit
+    complex64 plan is made with ``f``; a complex128 state runs every op
+    exactly. ``batched`` takes ``(b, 2^n)`` states and runs the circuit
     on every element (the reference's ``batchSize``, hipStateVec.h:61),
     kernel passes included: one launch per pass for the whole batch. The
     input state is not modified.
@@ -837,41 +807,41 @@ def compile_ir(ir: CircuitIR, fuse: bool = True, max_fuse: int = 2,
     dlw, dhw = default_widths(ir.num_qubits, sharded=layout is not None)
     low_width = dlw if low_width is None else low_width
     high_width = dhw if high_width is None else high_width
-    key = _plan_key(ir, "flat", fuse, max_fuse, low_width, high_width,
-                    batched, layout)
-    cached = _PLAN_CACHE.get(key)
-    if cached is not None:
-        return cached
     n = ir.num_qubits
     ops = list(ir.ops)
-    plan = []
 
-    def run(state, params=None):
-        if layout is not None:
-            sharded.check_sharding(layout, state)
-            if state.batched != batched or state.num_qubits != n:
-                raise ValueError(f"a sharded {n}-qubit circuit takes a "
-                                 f"{'batched ' if batched else ''}"
-                                 f"{n}-qubit ShardedState")
-            return run_sharded_flat(state, ops, params, fuse, max_fuse,
-                                    low_width, plan)
-        if sv.num_qubits_of(state) != n:
-            raise ValueError(f"state has {sv.num_qubits_of(state)} qubits, "
-                             f"the circuit {n}")
-        if state.dim() != 1 + batched:
-            raise ValueError(f"a {'batched' if batched else 'flat'} circuit "
-                             f"takes {'(b, 2^n)' if batched else '(2^n,)'} "
-                             f"states, got {tuple(state.shape)}")
-        if state.dtype != torch.complex64:
-            return run_ops_exact(state, ops, params)
-        if not plan:
-            plan.append(_plan_miss(ops, n, fuse, max_fuse, kernel=fuse,
-                                   low_width=low_width,
-                                   high_width=high_width))
-        return run_flat(state, plan[0], params)
+    def plan():
+        if layout is None:
+            return plan_items(ops, n, fuse, max_fuse, use_kernel=fuse,
+                              low_width=low_width, high_width=high_width)
+        n_loc = n - layout.n_global
+        return plan_items(ops, n_loc, fuse, max_fuse, use_kernel=fuse,
+                          low_width=min(low_width, n_loc))
 
-    _PLAN_CACHE[key] = run
-    return run
+    def bind(items):
+        def run(state, params=None):
+            if layout is not None:
+                sharded.check_sharding(layout, state)
+                if state.batched != batched or state.num_qubits != n:
+                    raise ValueError(f"a sharded {n}-qubit circuit takes a "
+                                     f"{'batched ' if batched else ''}"
+                                     f"{n}-qubit ShardedState")
+                return run_sharded_flat(state, ops, params, items=items)
+            if sv.num_qubits_of(state) != n:
+                raise ValueError(f"state has {sv.num_qubits_of(state)} "
+                                 f"qubits, the circuit {n}")
+            if state.dim() != 1 + batched:
+                raise ValueError(f"a {'batched' if batched else 'flat'} "
+                                 f"circuit takes "
+                                 f"{'(b, 2^n)' if batched else '(2^n,)'} "
+                                 f"states, got {tuple(state.shape)}")
+            if state.dtype != torch.complex64:
+                return run_ops_exact(state, ops, params)
+            return run_flat(state, items, params)
+        return run
+
+    return _compiled(_plan_key(ir, "flat", fuse, max_fuse, low_width,
+                               high_width, batched, layout), plan, bind)
 
 
 def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
@@ -889,33 +859,27 @@ def compile_df64_fused_ir(ir: CircuitIR, fuse: bool = True,
     bits and every shard runs it, one df64 kernel launch per shard a
     pass."""
     sharded.check_sharding(sharding)
-    key = _plan_key(ir, fuse, max_fuse, "df64", sharding)
-    cached = _PLAN_CACHE.get(key)
-    if cached is not None:
-        return cached
     n = ir.num_qubits
-    if sharding is not None:
-        n_loc = n - sharding.n_global
-        items = plan_items(list(ir.ops), n_loc, fuse, max_fuse,
-                           dense2q=False)
+    n_loc = n if sharding is None else n - sharding.n_global
+
+    def bind(items):
+        if sharding is None:
+            def run(pair, params):
+                planes = dfm.state_from_pair_f64(*pair)
+                return dfm.state_to_pair_f64(run_items_df64(planes, items,
+                                                            params, n))
+            return run
 
         def run_sharded_df64(state, params):
             sharded.check_sharding(sharding, state)
             state = state.map(lambda p: dfm.state_from_pair_f64(*p))
             state = run_sharded(state, items, params, _df64_rows(n_loc))
             return state.map(lambda p: dfm.state_to_pair_f64(p))
-
-        _PLAN_CACHE[key] = run_sharded_df64
         return run_sharded_df64
-    items = plan_items(list(ir.ops), n, fuse, max_fuse, dense2q=False)
 
-    def run(pair, params):
-        planes = dfm.state_from_pair_f64(*pair)
-        return dfm.state_to_pair_f64(run_items_df64(planes, items, params,
-                                                    n))
-
-    _PLAN_CACHE[key] = run
-    return run
+    return _compiled(_plan_key(ir, fuse, max_fuse, "df64", sharding),
+                     lambda: plan_items(list(ir.ops), n_loc, fuse, max_fuse,
+                                        kernel=fused_df64), bind)
 
 
 # ---------------------------------------------------------------------------
@@ -1065,22 +1029,18 @@ def run_sharded(state, items: Sequence, params, run):
 
 
 def run_sharded_flat(state, ops: Sequence, params=None, fuse: bool = True,
-                     max_fuse: int = 2, low_width: int = 0, plan=None):
+                     max_fuse: int = 2, low_width: int = 0, items=None):
     """:func:`execute` on a complex ShardedState: a complex64 state is
     planned on its local bits (kernel blocks from n_loc =
-    KERNEL_MIN_QUBITS on, the low block capped at n_loc) and run by
-    :func:`run_sharded`; a complex128 one runs op by op. ``plan`` (a list)
-    caches the plan across calls."""
+    KERNEL_MIN_QUBITS on, the low block capped at n_loc), unless ``items``
+    is that plan already, and run by :func:`run_sharded`; a complex128
+    one runs op by op."""
     if state.parts[0][0].dtype != torch.complex64:
         return run_sharded(state, ops, params, _complex_rows)
-    n_loc = state.n_local
-    if plan is None or not plan:
-        items = plan_items(ops, n_loc, fuse, max_fuse, kernel=fuse,
+    if items is None:
+        n_loc = state.n_local
+        items = plan_items(ops, n_loc, fuse, max_fuse, use_kernel=fuse,
                            low_width=min(low_width, n_loc))
-        if plan is not None:
-            plan.append(items)
-    else:
-        items = plan[0]
     return run_sharded(state, items, params, _complex_rows)
 
 

@@ -62,8 +62,12 @@ class DiagBlock:
 class PallasBlock:
     """A run of kernel-eligible gates applied by the fused-layer kernel:
     the whole run costs one pass over the amplitudes per planned kernel
-    pass (ops/relabel.py)."""
+    pass (ops/relabel.py). ``plan`` is its structure on the kernel it was
+    planned for (compiler/interpreter.py's ``BlockPlan``), set when its
+    circuit is planned."""
     ops: List[GateOp]
+    plan: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def qubits(self) -> Tuple[int, ...]:
@@ -85,13 +89,14 @@ def is_dense2q(op) -> bool:
 def fuse_pallas_runs(items: List[object], max_qubit: int,
                      min_gates: int = 6, num_qubits: int = None,
                      relabel_reach: int = None,
-                     dense2q: bool = False) -> List[object]:
+                     kernel=None) -> List[object]:
     """Collect runs of uncontrolled 1q gates on qubits <= max_qubit into
     PallasBlocks (runs shorter than ``min_gates`` aren't worth the
     float-pair conversion passes). Disjoint items commute past an open
-    run. ``dense2q`` admits dense two-qubit matrix gates
-    (:func:`is_dense2q`), which the f32 kernel applies and the df64 one
-    does not.
+    run. Dense two-qubit matrix gates (:func:`is_dense2q`) join a run
+    where ``kernel``, the module of the fused kernel that will run it
+    (ops/fused_sv.py or ops/fused_df64.py), lists "U4" among its
+    ``KINDS``.
 
     With ``relabel_reach`` set (the kernel's in-tile window, see
     ops/relabel.py), gates ABOVE the window are accepted too and scheduled
@@ -102,6 +107,7 @@ def fuse_pallas_runs(items: List[object], max_qubit: int,
     """
     out: List[object] = []
     block: PallasBlock = None
+    dense2q = kernel is not None and "U4" in kernel.KINDS
 
     def supports(item):
         if isinstance(item, (FusedBlock, DiagBlock, PallasBlock)):

@@ -34,12 +34,9 @@ import numpy as np
 import torch
 
 from . import config
-from .api import (PauliOperator, Simulator, _GateMethods,
-                  _restore_sharded, _schedule, _zero_sharded, _zero_state,
-                  check_mesh)
-from .compiler.interpreter import (_split_op, compile_df64_fused_ir,
-                                   compile_ir, compile_pair32_ir,
-                                   parametrize, run_ops_f64_sharded)
+from .api import (PauliOperator, Simulator, _engine, _GateMethods,
+                  _restore_sharded, _schedule, check_mesh)
+from .compiler.interpreter import _split_op, parametrize
 from .compiler.ir import CircuitIR, GateOp, ParamRef
 from .ops import gates as _g
 from .ops import pairdm, pairsim
@@ -158,11 +155,11 @@ def _kraus_of(mats):
     return [_matrix_of(m) for m in mats]
 
 
-def _build_plan(queue, n: int, mode: str):
+def _build_plan(queue, n: int, engine):
     """(run, ref_map, ir) for a queue: its 2n-view IR, compiled by
-    ``compile_pair32_ir`` (mode "pair32") or ``compile_df64_fused_ir``
-    ("df64"). Gates with a slot rule take ParamRefs; ``ref_map`` says
-    which hoisted queue value, with which sign, fills each slot."""
+    ``engine`` (api._engine's "pair32" or "df64"). Gates with a slot rule
+    take ParamRefs; ``ref_map`` says which hoisted queue value, with which
+    sign, fills each slot."""
     ref_map: List[Tuple[int, float]] = []  # param[j] = sign * qvalues[i]
     base = 0  # position in the hoisted queue-values vector
     ops = []
@@ -197,9 +194,7 @@ def _build_plan(queue, n: int, mode: str):
                           tuple(q + n for q in ctrl), row_refs, None, adj))
         ops.append(GateOp(key, tuple(tgt), tuple(ctrl), col_refs, None, adj))
     ir = CircuitIR(2 * n, ops)
-    run = compile_pair32_ir(ir) if mode == "pair32" \
-        else compile_df64_fused_ir(ir)
-    return run, tuple(ref_map), ir
+    return engine.compile(ir), tuple(ref_map), ir
 
 
 def _flush_exact(queue, rho, n: int):
@@ -308,16 +303,16 @@ class DensityCircuit(_GateMethods):
 
     # -- execution ------------------------------------------------------------
 
+    def _engine(self, f64: Optional[bool] = None):
+        """api._engine of rho's 2n-qubit view (``f64``: rho's own)."""
+        return _engine(2 * self.num_qubits, self.device,
+                       sharding=self._sharding(), f64=f64)
+
     def _init_rho(self):
         """|0...0><0...0| in the precision set now: a real float32 plane
         (the fill kernel on CUDA), a real float64 plane for the df64
         engine, else the full float64 pair of the exact engine."""
-        if self.mesh is not None:
-            return _zero_sharded(2 * self.num_qubits, self._sharding(),
-                                 config.get_precision(),
-                                 config.df64_enabled(), 1)
-        return _zero_state(2 * self.num_qubits, self.device,
-                           config.get_precision(), config.df64_enabled())
+        return self._engine().zero()
 
     def _plan_key(self, queue, mode):
         """(plan key, hoisted queue values): slot-rule gate angles leave
@@ -341,19 +336,18 @@ class DensityCircuit(_GateMethods):
         if self.mesh is not None:
             self._flush_sharded(queue)
             return
-        re = self._rho[0]
-        if re.dtype == torch.float64 and not config.df64_enabled():
+        engine = self._engine(f64=self._rho[0].dtype == torch.float64)
+        if engine.name == "exact":
             self._rho = _flush_exact(queue, self._rho, self.num_qubits)
             return
-        mode = "pair32" if re.dtype == torch.float32 else "df64"
-        key, qvalues = self._plan_key(queue, mode)
+        key, qvalues = self._plan_key(queue, engine.name)
         plan = _DM_PLAN_CACHE.get(key)
         if plan is None:
-            plan = _build_plan(queue, self.num_qubits, mode)
+            plan = _build_plan(queue, self.num_qubits, engine)
             _DM_PLAN_CACHE[key] = plan
         run, ref_map, self.last_ir = plan
         params = np.asarray([s * qvalues[i] for i, s in ref_map],
-                            np.float32 if mode == "pair32" else np.float64)
+                            engine.dtype)
         self._rho = tuple(run(self._rho, params))
 
     def _flush_sharded(self, queue):
@@ -367,16 +361,9 @@ class DensityCircuit(_GateMethods):
         ops, self._layout2n = _schedule(ops, n2, sharding.n_global,
                                         self._layout2n)
         self.last_ir = CircuitIR(n2, ops)
-        rho = self._rho
-        if rho.parts[0][0].is_complex():
-            self._rho = compile_ir(self.last_ir, sharding=sharding)(
-                rho, np.asarray(values, np.float32))
-        elif config.df64_enabled():
-            self._rho = compile_df64_fused_ir(self.last_ir,
-                                              sharding=sharding)(
-                rho, np.asarray(values, np.float64))
-        else:
-            self._rho = run_ops_f64_sharded(rho, ops, values)
+        engine = self._engine(f64=not self._rho.parts[0][0].is_complex())
+        self._rho = engine.compile(self.last_ir)(
+            self._rho, np.asarray(values, engine.dtype))
 
     def _restore_layout(self):
         """Undo the locality relabels (one merged relabel), so readouts

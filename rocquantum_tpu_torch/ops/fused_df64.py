@@ -42,6 +42,7 @@ REG_BITS = 5                    # amplitudes a thread: 2^5 on the real carry
 REG_BITS_COMPLEX = 4            # and 2^4 on the complex one
 MAX_OPS = 96                    # gate and swap records of one launch
 MAX_LAYOUTS = 8
+KINDS = fused_sv.KINDS - {"U4"}  # the gate kinds a pass applies
 
 _OP_DTYPE = np.dtype([("kind", np.uint8), ("real", np.uint8),
                       ("t", np.uint8), ("pad", np.uint8), ("a", np.int16),
@@ -115,7 +116,7 @@ def _check_layer(planes, specs, gate_mats, pair_bits, real_flags):
     if (ih is None) != (il is None):
         raise ValueError("im_hi and im_lo must both be given or both None")
     n = num_qubits_of(rh)
-    specs = _normalize_specs(specs, dense=False)
+    specs = _normalize_specs(specs, KINDS)
     if real_flags is None:
         real_flags = (False,) * len(specs)
     real_flags = tuple(bool(f) for f in real_flags)
@@ -200,7 +201,7 @@ def apply_fused_layer_df64_reference(rh, rl, ih, il, specs, gate_mats,
     kernel's order of df64 operations and no notion of its local set
     (``pair_bits`` is accepted and ignored). Returns new planes; the inputs
     are not modified."""
-    specs = _normalize_specs(specs, dense=False)
+    specs = _normalize_specs(specs, KINDS)
     if real_flags is not None and ih is None and not all(real_flags):
         raise ValueError("the real carry (im planes None) requires every "
                          "gate matrix to be real")

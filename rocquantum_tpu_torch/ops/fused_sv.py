@@ -75,6 +75,7 @@ MAX_LAYOUTS = 8   # layouts of one launch
 _SLOTS = 16
 
 _KIND_CODES = {"U": 0, "CNOT": 1, "CU": 2, "D2": 3, "U4": 5}
+KINDS = frozenset(_KIND_CODES)  # the gate kinds a pass applies
 SWAP = 4
 U4, U4_ROW = 5, 6  # a U4 record is followed by three U4_ROW records
 _DENSE_FLOATS = 32  # a U4's matrix: 4 rows of 4 complex entries
@@ -150,13 +151,13 @@ def build() -> ctypes.CDLL:
     return _LIB
 
 
-def _normalize_specs(specs, dense: bool = True) -> Tuple[tuple, ...]:
-    """Specs as ``(kind, qubit, ...)`` tuples of ints; ``dense`` admits
-    U4 (the df64 kernel has none)."""
+def _normalize_specs(specs, kinds=KINDS) -> Tuple[tuple, ...]:
+    """Specs as ``(kind, qubit, ...)`` tuples of ints, each kind one of
+    ``kinds`` (the kernel's :data:`KINDS`)."""
     out = []
     for spec in specs:
         kind = spec[0]
-        if kind not in _KIND_CODES or (kind == "U4" and not dense):
+        if kind not in kinds:
             raise ValueError(f"unknown gate kind {kind!r} in {spec}")
         qs = tuple(int(q) for q in spec[1:])
         if len(qs) != (1 if kind == "U" else 2):

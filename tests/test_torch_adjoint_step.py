@@ -4,10 +4,10 @@ which walks the kernel's index geometry, against the sequence it replaces
 step on the bra); the sweep routed through it against the JAX package's
 ``adjoint_grad``; and the counters that say which steps it served.
 
-The kernel itself runs only on a card (``tests/test_torch_gpu.py``). Here
-``adjoint_step.takes`` is patched to accept CPU planes where a test routes
-the sweep through the step, so that the host side (plans, target order,
-matrices packed a request, the float64 M buffer) runs as on the card.
+The kernel itself runs only on a card (``tests/test_torch_gpu.py``). On
+CPU float32 planes the sweep sends every step to the plain version, so
+the host side (plans, target order, matrices packed a request, the
+float64 M buffer) runs as on the card.
 
 Tolerances: planes within 1e-6 of max|amp| (float32 steps of unit
 states); M within 1e-7 of sum|M| (the replaced sums round their products
@@ -181,14 +181,6 @@ def jax_mixed():
     return theta, value, np.asarray(grads)
 
 
-@pytest.fixture
-def routed(monkeypatch):
-    """Route the sweep's parameterized steps through the adjoint step on
-    CPU float32 planes."""
-    monkeypatch.setattr(adjoint_step, "takes",
-                        lambda p: p.dtype == torch.float32 and p.dim() == 1)
-
-
 def _traced_grad(theta, precision="single"):
     old = ("df64" if port_config.df64_enabled()
            else port_config.get_precision())
@@ -206,25 +198,28 @@ def _traced_grad(theta, precision="single"):
     return value, grads, req
 
 
-@pytest.mark.parametrize("route", ["plain", "step"])
-def test_mixed_circuit_gradient_matches_jax(jax_mixed, request, route):
-    if route == "step":
-        request.getfixturevalue("routed")
+@pytest.mark.parametrize("route", ["step", "correlation"])
+def test_mixed_circuit_gradient_matches_jax(jax_mixed, route):
+    """Single precision walks every parameterized gate back through the
+    adjoint step; double precision through the exact engine's one-gate
+    steps around ``autodiff._correlation``."""
     theta, want_v, want_g = jax_mixed
-    value, grads, req = _traced_grad(theta)
+    value, grads, req = _traced_grad(
+        theta, "single" if route == "step" else "double")
     assert abs(value - want_v) <= 1e-5 * abs(want_v)
     np.testing.assert_allclose(grads, want_g, atol=2e-5)
     # one request (rq.grad) counts every parameterized gate walked back,
-    # and those the step served: the adjoint_kernel_share of 0 or 100
+    # and those the step served: the adjoint_kernel_share of 100 or 0
     assert [s.name for s in req.spans if s.parent is None] == ["rq.grad"]
     served = MIXED_GATES if route == "step" else 0
     assert req.counters.get("adjoint_steps") == MIXED_GATES
     assert req.counters.get("adjoint_kernel_steps", 0) == served
 
 
-def test_exact_sweep_keeps_its_engine(jax_mixed, routed):
+def test_exact_sweep_keeps_its_engine(jax_mixed):
     """Double precision walks back on the exact complex128 engine: no step
-    goes to the float32 kernel, whatever the planes."""
+    goes to the adjoint step, whose plain version would take the CPU
+    planes."""
     theta, want_v, want_g = jax_mixed
     for precision in ("double", "df64"):
         value, grads, req = _traced_grad(theta, precision)

@@ -3,9 +3,10 @@
 The same kernel functions (they only call ``q.ry``/``q.cx``/...) are traced
 by both packages. The reversible sweep (``rocquantum_tpu_torch.autodiff``)
 is held to the JAX package's ``adjoint_grad`` on a ring ansatz at N = 15,
-where the port's forward and every backward step run kernel blocks
-(through the fused layer's plain version on the CPU) and the JAX package
-runs Pallas in interpret mode; to JAX's plain autodiff on the random
+where the port's forward and every parameter-free backward step run kernel
+blocks (through the fused layer's plain version on the CPU), each angle's
+step the adjoint step (its plain version), and the JAX package runs
+Pallas in interpret mode; to JAX's plain autodiff on the random
 circuits and the complex-group circuit of tests/test_autodiff.py; to
 parameter shift in double precision; and to the JAX package in double
 precision. The bytes it saves for backward do not grow with depth.
@@ -31,7 +32,7 @@ from rocquantum_tpu.ops import statevec as jax_sv
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch import autodiff
 from rocquantum_tpu_torch import config as port_config
-from rocquantum_tpu_torch.ops import fused_sv, pairsim
+from rocquantum_tpu_torch.ops import adjoint_step, fused_sv, pairsim
 
 N = 15
 LAYERS = 2
@@ -66,6 +67,17 @@ def kernel_calls(monkeypatch):
         return wrapper(re, im, *args, **kwargs)
 
     monkeypatch.setattr(fused_sv, "apply_fused_layer", counted)
+    return calls
+
+
+@pytest.fixture
+def step_calls(monkeypatch):
+    """Records every call of the adjoint step (which runs its plain
+    version on CPU tensors)."""
+    calls = []
+    apply = adjoint_step.apply
+    monkeypatch.setattr(adjoint_step, "apply",
+                        lambda *a, **k: calls.append(1) or apply(*a, **k))
     return calls
 
 
@@ -110,7 +122,7 @@ def jax_ring():
 
 
 def test_ring_ansatz_gradient_matches_jax_through_kernel_blocks(
-        jax_ring, kernel_calls):
+        jax_ring, kernel_calls, step_calls):
     theta, want_v, want_g = jax_ring
     value, grads = rq.adjoint_grad(rq.kernel(ring), N,
                                    rq.Simulator(device="cpu"), theta,
@@ -118,10 +130,12 @@ def test_ring_ansatz_gradient_matches_jax_through_kernel_blocks(
     assert abs(value - want_v) <= 1e-5 * abs(want_v)
     np.testing.assert_allclose(grads, want_g, atol=1e-4)
     assert grads.dtype == want_g.dtype == np.float32
-    # the forward flush and every backward step ran kernel blocks, each on
-    # the real plane: 2 one-gate steps per angle, 2 per CNOT ring at least
-    assert len(kernel_calls) >= 2 * N * LAYERS + 2 * LAYERS
+    # the forward flush and the CNOT rings' backward steps ran kernel
+    # blocks, each on the real plane (2 a ring at least); each angle's step
+    # ran the adjoint step
+    assert len(kernel_calls) >= 1 + 2 * LAYERS
     assert all(kernel_calls)
+    assert len(step_calls) == N * LAYERS
 
 
 def test_second_gradient_plans_nothing(jax_ring):
@@ -223,7 +237,8 @@ def test_random_circuits_match_plain_autodiff(n, seed):
 # qubit maps: the circuit of tests/test_autodiff.py as written, and spread
 # over 15 qubits (kernel blocks, targets outside the kernel's window)
 @pytest.mark.parametrize("n,qmap", [(4, (0, 1, 2, 3)), (N, (0, 9, 3, 14))])
-def test_complex_fixed_gate_groups_match_plain_autodiff(n, qmap, kernel_calls):
+def test_complex_fixed_gate_groups_match_plain_autodiff(n, qmap, kernel_calls,
+                                                       step_calls):
     """S/T/SDG make the parameter-free groups genuinely complex
     (tests/test_autodiff.py::TestFusedBackwardGroups)."""
     def ops_of(Op, Ref):
@@ -245,10 +260,12 @@ def test_complex_fixed_gate_groups_match_plain_autodiff(n, qmap, kernel_calls):
     assert abs(v_t - v_j) < 1e-6
     np.testing.assert_allclose(g_t, g_j, atol=2e-5)
     if n == N:
-        # the forward block and the six backward steps, each on ket and on
-        # bra, ran kernel blocks on complex planes
-        assert len(kernel_calls) >= 1 + 2 * 6
+        # the forward block and the three parameter-free backward steps,
+        # each on ket and on bra, ran kernel blocks on complex planes; the
+        # three angles' steps ran the adjoint step
+        assert len(kernel_calls) >= 1 + 2 * 3
         assert not any(kernel_calls)
+        assert len(step_calls) == 3
 
 
 def test_analytic_single_ry_and_shared_parameter():

@@ -24,7 +24,7 @@ from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp
 from rocquantum_tpu_torch.compiler.passes import PallasBlock
 from rocquantum_tpu_torch.integrations.qiskit_provider import \
     RocQuantumBackend
-from rocquantum_tpu_torch.ops import fused_sv
+from rocquantum_tpu_torch.ops import fused_df64, fused_sv
 from rocquantum_tpu_torch.ops import statevec as sv
 from rocquantum_tpu_torch.parallel import make_mesh, sharded, state_sharding
 from rocquantum_tpu_torch.simulator import QuantumSimulator
@@ -175,7 +175,7 @@ def test_df64_keeps_dense_gates_off_its_kernel():
     ops, gates = _qv_ops(rng, n, 2)
     ry = [GateOp("RY", (q,), (), (0.3 + 0.1 * q,)) for q in range(n)]
     assert "U4" not in _kernel_kinds(
-        interpreter.plan_items(ry + ops, n, dense2q=False))
+        interpreter.plan_items(ry + ops, n, kernel=fused_df64))
     assert "U4" in _kernel_kinds(interpreter.plan_items(ry + ops, n))
     re, im = interpreter.compile_df64_fused_ir(CircuitIR(n, ry + ops))(
         (interpreter.init_real64(n, CPU), None), None)

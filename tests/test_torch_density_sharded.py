@@ -147,7 +147,7 @@ def test_parameterized_segments_share_a_plan():
 
 def _run_scheduled(ops, n, mesh):
     sched, _ = schedule_for_sharding(ops, 2 * n, num_global_qubits(mesh))
-    rho = api._zero_sharded(2 * n, state_sharding(mesh), "single", False, 1)
+    rho = api._engine(2 * n, sharding=state_sharding(mesh), f64=False).zero()
     reset_collectives()
     compile_ir(CircuitIR(2 * n, sched), sharding=state_sharding(mesh))(rho)
     return sched, count_collectives()

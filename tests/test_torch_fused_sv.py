@@ -158,9 +158,9 @@ def test_start_from_zero_complex_block():
     want = jax_interp._apply_pallas_block_pair(
         None, None, JaxBlock(ops=list(jax_ir.ops)), None, interpret=True,
         num_qubits=N)
-    got = port_interp._apply_pallas_block_pair(
-        None, None, PallasBlock(ops=list(port_ir.ops)), None, N,
-        device="cpu")
+    block = port_interp._plan_block(PallasBlock(ops=list(port_ir.ops)), N,
+                                    fused_sv)
+    got = port_interp._run_block((None, None), block, None, N, device="cpu")
     assert got[1] is not None
     np.testing.assert_allclose(got[0].numpy(), _np(want[0]), atol=ATOL)
     np.testing.assert_allclose(got[1].numpy(), _np(want[1]), atol=ATOL)

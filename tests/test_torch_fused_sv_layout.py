@@ -17,7 +17,7 @@ import torch
 
 from rocquantum_tpu_torch.compiler import interpreter
 from rocquantum_tpu_torch.models import hardware_efficient_ansatz_ir
-from rocquantum_tpu_torch.ops import fused_sv
+from rocquantum_tpu_torch.ops import fused_df64, fused_sv
 
 ATOL = 1e-5
 
@@ -528,4 +528,4 @@ def test_dense_gate_keeps_off_the_real_plane_and_df64():
         fused_sv.apply_fused_layer_reference(plane, None, specs, gm,
                                              dense_mats=dm)
     with pytest.raises(ValueError):
-        fused_sv._normalize_specs(specs, dense=False)
+        fused_sv._normalize_specs(specs, fused_df64.KINDS)

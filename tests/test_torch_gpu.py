@@ -1420,8 +1420,8 @@ def _qv_plan(rng, n, layers):
             ops.append(GateOp("UNITARY", (int(perm[2 * w]),
                                           int(perm[2 * w + 1])), (), (), u))
     (block,) = interpreter.plan_items(ops, n)
-    kinds, supports, gm, _, dm = interpreter.pallas_block_specs_dense(
-        block, None)
+    kinds, supports, gm, _, dm = interpreter._block_specs(
+        block, None, fused_sv)
     return kinds, interpreter.kernel_plan(n, kinds, supports,
                                    complex_carry=True), gm, dm
 

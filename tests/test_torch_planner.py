@@ -8,6 +8,7 @@ planner and the Python planner must agree at the port's own geometry.
 
 import numpy as np
 import pytest
+import torch
 
 from rocquantum_tpu.compiler import interpreter as jax_interp
 from rocquantum_tpu.compiler import passes as jax_passes
@@ -16,7 +17,9 @@ from rocquantum_tpu.ops import relabel as jax_relabel
 from rocquantum_tpu_torch import convert
 from rocquantum_tpu_torch.compiler import interpreter as port_interp
 from rocquantum_tpu_torch.compiler import passes as port_passes
+from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp, ParamRef
 from rocquantum_tpu_torch.ops import fused_sv
+from rocquantum_tpu_torch.ops import statevec as sv
 from rocquantum_tpu_torch.ops import relabel as port_relabel
 
 TPU_REACH = 17
@@ -175,3 +178,59 @@ def test_planner_rejects_unschedulable_gate():
         port_relabel.plan_full_layer(24, [(20, 21)], 10, max_pairs=1)
     with pytest.raises(ValueError):
         port_relabel.plan_full_layer(12, [(12,)], 10)
+
+
+def _cached_plan_case(path, n):
+    """(IR, run(compiled, values) -> planes) of one engine path at n
+    qubits: RY (real) or RX (complex) angles on every qubit and a CNOT
+    ring, with two fixed dense 4x4 gates on the flat path."""
+    gate = "RX" if path == "pair_complex" else "RY"
+    ops = [GateOp(gate, (q,), (), (ParamRef(q),)) for q in range(n)]
+    ops += [GateOp("CNOT", (q,), ((q + 1) % n,)) for q in range(n)]
+    if path == "flat_u4":
+        u = np.linalg.qr(np.arange(16).reshape(4, 4) + 1j * np.eye(4))[0]
+        ops += [GateOp("UNITARY", (0, 5), (), (), u),
+                GateOp("UNITARY", (3, 2), (), (), u.T)]
+    ir = CircuitIR(n, ops)
+    cpu = torch.device("cpu")
+    if path == "flat_u4":
+        return ir, lambda: port_interp.compile_ir(ir), \
+            lambda fn, v: (fn(sv.init_state(n, device=cpu), v),)
+    if path == "df64":
+        return ir, lambda: port_interp.compile_df64_fused_ir(ir), \
+            lambda fn, v: fn((port_interp.init_real64(n, cpu), None), v)
+    return ir, lambda: port_interp.compile_pair32_ir(ir), \
+        lambda fn, v: fn((None, None), v, device=cpu)
+
+
+@pytest.mark.parametrize("path", ["pair_real", "pair_complex", "flat_u4",
+                                  "df64"])
+def test_a_cached_plan_runs_without_planning(monkeypatch, path):
+    """A second run of a cached plan, at new angles, classifies no gate
+    and plans no kernel pass (the kernel blocks hold their structure), and
+    returns what a fresh plan returns at those angles."""
+    n = 15
+    ir, compile_, run = _cached_plan_case(path, n)
+    rng = np.random.default_rng(3)
+    first, second = rng.uniform(0, 2 * np.pi, (2, n))
+    port_interp.clear_cache()
+    run(compile_(), first)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a cached plan was planned again")
+
+    blocks = []
+    run_block = port_interp._run_block
+    with monkeypatch.context() as m:
+        for name in ("_classify_spec", "kernel_plan"):
+            m.setattr(port_interp, name, refuse)
+        m.setattr(port_relabel, "plan_full_layer", refuse)
+        m.setattr(port_interp, "_run_block",
+                  lambda *a, **k: blocks.append(1) or run_block(*a, **k))
+        got = run(compile_(), second)
+    assert blocks
+    port_interp.clear_cache()
+    want = run(compile_(), second)
+    planes = [(g, w) for g, w in zip(got, want) if w is not None]
+    assert planes and all(torch.equal(g, w) for g, w in planes)
+    assert all(g is None for g, w in zip(got, want) if w is None)

@@ -26,10 +26,14 @@ from rocquantum_tpu.compiler.ir import CircuitIR as JaxIR
 from rocquantum_tpu.models import circuits as jax_circuits
 from rocquantum_tpu.ops import pairsim as jax_pairsim
 import rocquantum_tpu_torch as rq
+from rocquantum_tpu_torch import api as port_api
 from rocquantum_tpu_torch import config as port_config
 from rocquantum_tpu_torch import convert
+from rocquantum_tpu_torch import density_circuit as port_dc
 from rocquantum_tpu_torch.compiler import interpreter as port_interp
+from rocquantum_tpu_torch.compiler.ir import CircuitIR, GateOp
 from rocquantum_tpu_torch.ops import df64, fused_df64
+from rocquantum_tpu_torch.parallel import make_mesh, sharded, state_sharding
 
 N = 15
 ATOL = 5e-13
@@ -314,3 +318,90 @@ def test_convert_keeps_float64():
     assert re.dtype == im.dtype == torch.float64
     np.testing.assert_array_equal(im.numpy(), v[::-1])
     assert convert.params_from_numpy(v).dtype == torch.float32
+
+
+F32, F64, C64 = torch.float32, torch.float64, torch.complex64
+# (layout, precision) -> (engine, start state): api._engine's table
+ENGINES = {
+    ("one", "single"): ("pair32", ("planes", (F32, None))),
+    ("one", "df64"): ("df64", ("planes", (F64, None))),
+    ("one", "double"): ("exact", ("planes", (F64, F64))),
+    ("batch", "single"): ("flat", ("batch", (C64,))),
+    ("batch", "df64"): ("exact", ("batch", (F64, F64))),
+    ("batch", "double"): ("exact", ("batch", (F64, F64))),
+    ("sharded", "single"): ("flat", ("sharded", (C64,))),
+    ("sharded", "df64"): ("df64", ("sharded", (F64, None))),
+    ("sharded", "double"): ("exact", ("sharded", (F64, F64))),
+}
+
+
+def _made_of(state):
+    """(layout, each plane's dtype or None) of a state."""
+    if isinstance(state, sharded.ShardedState):
+        return "sharded", tuple(None if p is None else p.dtype
+                                for p in state.parts[0])
+    planes = state if isinstance(state, tuple) else (state,)
+    layout = "batch" if planes[0].dim() == 2 else "planes"
+    return layout, tuple(None if p is None else p.dtype for p in planes)
+
+
+@pytest.mark.parametrize("precision", ["single", "df64", "double"])
+@pytest.mark.parametrize("layout", ["one", "batch", "sharded"])
+def test_engine_table(monkeypatch, layout, precision):
+    """``api._engine`` picks the engine and the start state of its table
+    (a two-device CPU mesh for the sharded row); a Circuit, a compiled
+    program and (unbatched) a DensityCircuit start from that state and
+    flush on that engine."""
+    _set(precision)
+    n, cpu = 4, torch.device("cpu")
+    mesh = make_mesh(2, devices=[cpu, torch.device("cpu", 0)]) \
+        if layout == "sharded" else None
+    b = 4 if layout == "batch" else 1
+    name, start = ENGINES[layout, precision]
+    engine = port_api._engine(n, cpu, b, None if mesh is None
+                              else state_sharding(mesh, batch=b > 1))
+    assert engine.name == name
+    assert engine.dtype == (np.float32 if precision == "single"
+                            else np.float64)
+    assert _made_of(engine.zero()) == start
+
+    ran = []
+    for fn, tag in (("compile_pair32_ir", "pair32"), ("compile_ir", "flat"),
+                    ("compile_df64_fused_ir", "df64"),
+                    ("run_ops_f64", "exact"),
+                    ("run_ops_f64_sharded", "exact")):
+        monkeypatch.setattr(port_api, fn, functools.partial(
+            lambda f, t, *a, **k: ran.append(t) or f(*a, **k),
+            getattr(port_api, fn), tag))
+    monkeypatch.setattr(port_dc, "_flush_exact", functools.partial(
+        lambda f, *a: ran.append("exact") or f(*a), port_dc._flush_exact))
+    sim = rq.Simulator(device="cpu")
+
+    def kept(state):
+        """The layout and the first plane's dtype are the start state's
+        (a real carry below the kernel's size gets a zero im plane)."""
+        layout, dtypes = _made_of(state)
+        return (layout, dtypes[0]) == (start[0], start[1][0])
+
+    def flushes_on_engine(circuit, state):
+        ran.clear()
+        circuit.ry(0.3, 0)
+        circuit.cx(0, 1)
+        circuit.flush()
+        return set(ran) == {name} and kept(state())
+
+    c = rq.Circuit(n, sim, batch_size=b, mesh=mesh, device=cpu)
+    assert _made_of(c.state) == start
+    assert flushes_on_engine(c, lambda: c.state)
+    if layout == "batch":
+        return
+    ir = CircuitIR(n, [GateOp("RY", (0,), (), (0.3,)),
+                       GateOp("CNOT", (1,), (0,))])
+    ran.clear()
+    program = rq.compile_program(ir, sim, mesh=mesh)
+    assert _made_of(program._init_fn()) == start
+    assert kept(program.run().state) and set(ran) == {name}
+    dc = rq.DensityCircuit(n, sim, mesh=mesh, device=cpu)
+    assert _made_of(dc._rho if dc._rho is not None
+                    else dc._init_rho()) == start
+    assert flushes_on_engine(dc, lambda: dc._rho)
