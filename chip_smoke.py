@@ -181,6 +181,14 @@ Phases:
      sequence it replaces (a one-gate fused pass on the ket, the
      plain-torch M sums, a one-gate pass on the bra); ``python3 -c
      "import chip_smoke; chip_smoke.adjoint_step_phase()"`` runs it alone.
+ 21. A diagonal on global bits of a complex64 state over 4 virtual shards
+     of the card, scaled in place a cell (the sharded runner's path) and
+     as a diagonal matrix a shard through the flat engine (its path
+     before: an upload, a GEMM and a copy back), held to each other at
+     n = 26, then timed in turns at the four-card cell's shard size (n =
+     32, 2^30 amplitudes a shard) beside the byte bound of one read and
+     write of a shard; not part of the run above: ``python3 -c "import
+     chip_smoke; chip_smoke.shard_diagonal_phase()"`` runs it.
 
 Each path (phases 4, 7, 9, 11's gradient, 12's f32 and df64 requests,
 14's ansatz requests, 15.1's batched requests, 16.1's and 16.2's sharded
@@ -4314,6 +4322,90 @@ def adjoint_step_phase():
         del ket, bra
         torch.cuda.empty_cache()
     print(f"adjoint step phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+SHARD_DIAG_N = 32          # the four-card cell's state: 4 shards of 2^30
+SHARD_DIAG_CHECK_N = 26
+SHARD_DIAG_TOL = 1e-6      # in place vs the matrix path, of max|amp|
+
+
+def shard_diagonal_phase():
+    """Phase 21: diagonals on global bits over 4 virtual shards of the
+    card, the sharded runner's in-place path against the per-shard
+    diagonal matrix it replaced: a block of the four-card cell's RZ on
+    both global bits (a scalar a cell) and a CZ from a global control to
+    qubit 0 (a factor over one local qubit where the control is 1), held
+    to each other at n = SHARD_DIAG_CHECK_N, then timed in turns at n =
+    SHARD_DIAG_N; ms a cell, and a cell it scales beside the byte bound of
+    one read and write of a cell's 2^30 complex64 amplitudes."""
+    import torch
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.compiler.ir import GateOp
+    from rocquantum_tpu_torch.parallel import make_mesh, sharded
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    mesh = make_mesh(4, devices=[dev] * 4)
+
+    def cases(n):
+        """(name, ops, cells the in-place path scales: a CZ's factor is
+        all ones where its control is 0)."""
+        return (("RZ RZ", [GateOp("RZ", (n - 2,), (), (0.7,)),
+                           GateOp("RZ", (n - 1,), (), (1.9,))], 4),
+                ("CZ", [GateOp("CZ", (0,), (n - 1,), ())], 2))
+
+    def in_place(state, ops):
+        return interpreter._global_diagonal(state, ops, None, state.n_local)
+
+    def per_shard(state, ops):
+        for op in ops:
+            state = interpreter._global_op(state, op, None,
+                                           interpreter._complex_rows,
+                                           state.n_local)
+        return state
+
+    n = SHARD_DIAG_CHECK_N
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    v = torch.randn(1 << n, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    v /= float(v.abs().square().sum()) ** 0.5
+    worst = 0.0
+    for name, ops, _ in cases(n):
+        got = sharded.gather(in_place(sharded.shard_state(v, mesh), ops))[0]
+        want = sharded.gather(per_shard(sharded.shard_state(v, mesh),
+                                        ops))[0]
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        worst = max(worst, err)
+        print(f"shard diagonal {name} n={n}: in place vs matrix path "
+              f"{err:.2e} of max|amp|")
+        check(err <= SHARD_DIAG_TOL, f"shard diagonal {name}: {err:.3e}")
+    del v, got, want
+    torch.cuda.empty_cache()
+
+    n = SHARD_DIAG_N
+    cell = 1 << (n - 2)
+    parts = [(torch.full((4, cell), 2.0 ** (-n / 2), dtype=torch.complex64,
+                         device=dev),)]
+    state = sharded.ShardedState(sharded.state_sharding(mesh), n, None,
+                                 parts)
+    bound = cell * 8 * 2 / HBM_BYTES_PER_S * 1e3
+    row = {"bound_ms": bound, "max_abs_err": worst}
+    for name, ops, scaled in cases(n):
+        old_1, new_1, new_2, old_2 = time_turns(
+            repeat(lambda: in_place(state, ops)),
+            repeat(lambda: per_shard(state, ops)), 10, 2)
+        new_ms, old_ms = min(new_1, new_2) / 4, min(old_1, old_2) / 4
+        row[name] = {"ms": new_ms, "before_ms": old_ms}
+        print(f"shard diagonal {name} n={n}, ms a cell: in place "
+              f"{new_1 / 4:.3f} / {new_2 / 4:.3f}, matrix path "
+              f"{old_1 / 4:.3f} / {old_2 / 4:.3f}; in place "
+              f"{4 * new_ms / scaled:.3f} a cell it scales ({scaled} of 4), "
+              f"bound {bound:.3f} "
+              f"({100 * bound * scaled / (4 * new_ms):.1f}%)")
+    del state, parts
+    torch.cuda.empty_cache()
+    print(f"shard diagonal phase: {time.perf_counter() - t_phase:.1f} s")
     return row
 
 

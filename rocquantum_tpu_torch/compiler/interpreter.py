@@ -35,10 +35,12 @@ A sharded state (parallel/sharded.py: one ``(k, 2^L)`` tensor of shard
 rows a device) runs through :func:`run_sharded`: the plan is made on the
 L local bits, a run of local items goes to each device once (every shard
 row of it in one batched kernel launch a pass; df64 row by row), a
-diagonal touching global bits runs on each shard as its own diagonal on
-local bits, and SWAP_BITS / PERMUTE_BITS across the boundary are
-all-to-all rounds (``compile_ir(sharding=...)``,
-``compile_df64_fused_ir(sharding=...)``, :func:`run_ops_f64_sharded`).
+diagonal touching global bits scales each shard's rows in place by its
+factor with the shard's global bits fixed (df64 hi/lo planes: each shard
+runs it as its own diagonal on local bits), and SWAP_BITS /
+PERMUTE_BITS across the boundary are all-to-all rounds
+(``compile_ir(sharding=...)``, ``compile_df64_fused_ir(sharding=...)``,
+:func:`run_ops_f64_sharded`).
 """
 
 from __future__ import annotations
@@ -153,13 +155,20 @@ def _diag_vector(op: GateOp, params) -> np.ndarray:
     return d
 
 
-def _phase_factor(state, values, desc):
-    """Multiply ``state`` (or each element of a batch) by a factor tensor
-    over the exposed qubits ``desc`` (descending)."""
+def _factor_dims(state, desc):
+    """(the view dims of ``state`` that expose the qubits ``desc``
+    (descending), the shape in which a factor over them broadcasts)."""
     dims = sv.view_dims(state, desc)
     bshape = [1] * len(dims)
     for j in range(len(desc)):
         bshape[2 * j + 1] = 2
+    return dims, bshape
+
+
+def _phase_factor(state, values, desc):
+    """Multiply ``state`` (or each element of a batch) by a factor tensor
+    over the exposed qubits ``desc`` (descending)."""
+    dims, bshape = _factor_dims(state, desc)
     f = torch.as_tensor(values, dtype=state.dtype, device=state.device)
     return (state.view(dims) * f.reshape(bshape)).reshape(state.shape)
 
@@ -933,14 +942,21 @@ def _df64_rows(n_loc: int, per_op: bool = False):
     return run
 
 
+def _cell_factor(op: GateOp, params, shard: int, n_loc: int):
+    """A diagonal op's factor with shard ``shard``'s global bits fixed:
+    (its local qubits, descending; the complex128 factor over them, 0-d
+    when none is left)."""
+    desc, f = _diag_factor(op, params)
+    f = f[tuple((shard >> (q - n_loc)) & 1 if q >= n_loc else slice(None)
+                for q in desc)]
+    return [q for q in desc if q < n_loc], f
+
+
 def _shard_diagonal(op: GateOp, params, shard: int, n_loc: int) -> GateOp:
     """A diagonal op on one shard: its factor with the shard's global bits
     fixed, as a diagonal UNITARY on its local qubits (on qubit 0 when it
     has none: a phase)."""
-    desc, f = _diag_factor(op, params)
-    f = f[tuple((shard >> (q - n_loc)) & 1 if q >= n_loc else slice(None)
-                for q in desc)]
-    local = [q for q in desc if q < n_loc]
+    local, f = _cell_factor(op, params, shard, n_loc)
     if not local:
         local, f = [0], np.full(2, f)
     # f's axes descend, so its flat index has local[-1] as bit 0
@@ -960,6 +976,47 @@ def _apply_rows(planes, r0: int, r1: int, op: GateOp, params, run):
         if x is not None:
             p[r0:r1].copy_(x)
     return planes
+
+
+def _scale_cell(rows: torch.Tensor, ops, params, shard: int, n_loc: int):
+    """Multiply a cell's complex rows in place by diagonal ops' factors
+    with the cell's global bits fixed. The factors left with no local
+    qubit make one complex scalar, a Python number (nothing is uploaded),
+    folded into the first factor that has some; each of those is a small
+    tensor broadcast over its local qubits, copied up from pinned memory
+    without a host wait. A factor of all ones is skipped."""
+    scalar, local = 1 + 0j, []
+    for op in ops:
+        desc, f = _cell_factor(op, params, shard, n_loc)
+        if desc:
+            local.append((desc, f))
+        else:
+            scalar *= complex(f)
+    if local:
+        local[0] = (local[0][0], local[0][1] * scalar)
+    elif scalar != 1:
+        rows.mul_(scalar)
+    for desc, f in local:
+        if np.all(f == 1):
+            continue
+        dims, bshape = _factor_dims(rows, desc)
+        host = torch.from_numpy(np.ascontiguousarray(f)).to(rows.dtype)
+        if rows.is_cuda:
+            host = host.pin_memory()
+        rows.view(dims).mul_(host.to(rows.device, non_blocking=True)
+                             .reshape(bshape))
+
+
+def _global_diagonal(state, ops, params, n_loc: int):
+    """Diagonal ops that touch global bits, on a state of complex parts:
+    every cell's rows scaled in place (:func:`_scale_cell`), with no
+    matmul, no new tensor and no copy back."""
+    nb = state.rows_per_cell
+    for (_, s), (i, k) in state.sharding.loc.items():
+        with sharded.on_device(state.sharding.parts[i][0]):
+            _scale_cell(state.parts[i][0][k * nb:(k + 1) * nb], ops, params,
+                        s, n_loc)
+    return state
 
 
 def _global_op(state, op: GateOp, params, run, n_loc: int):
@@ -1002,8 +1059,12 @@ def _global_op(state, op: GateOp, params, run, n_loc: int):
 def run_sharded(state, items: Sequence, params, run):
     """Execute planned items (or raw ops) on a ShardedState. Runs of items
     on local bits go to ``run(planes, items, params)`` once per part (every
-    shard of a device in one call); an item touching global bits is taken
-    op by op (:func:`_global_op`)."""
+    shard of a device in one call). A diagonal item (a DiagBlock or a
+    diagonal op) touching global bits scales each cell in place, as one
+    item (:func:`_global_diagonal`), when the parts are complex tensors;
+    it and any other item touching global bits are otherwise taken op by
+    op (:func:`_global_op`): df64 hi/lo planes keep the per-shard
+    diagonal, whose product needs their own arithmetic."""
     params = _host_params(params)
     n_loc = state.n_local
     pending: list = []
@@ -1020,6 +1081,13 @@ def run_sharded(state, items: Sequence, params, run):
             pending.append(item)
             continue
         state = drain(state)
+        if isinstance(item, DiagBlock) or (isinstance(item, GateOp)
+                                           and is_diagonal(item)):
+            profiling.count("shard_diagonals")
+            if len(state.parts[0]) == 1 and state.parts[0][0].is_complex():
+                profiling.count("shard_diagonals_in_place")
+                state = _global_diagonal(state, _members(item), params, n_loc)
+                continue
         for op in _members(item):
             if all(q < n_loc for q in _item_qubits(op)):
                 state = state.map(lambda p: run(p, [op], params))

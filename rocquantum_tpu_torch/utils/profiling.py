@@ -50,11 +50,14 @@ except ImportError:  # pragma: no cover - older torch
 # made because a plan cache missed; the dense two-qubit (4x4) gates the
 # engines applied, and those of them the fused kernel applied; the
 # parameterized gates the adjoint sweep walked back, and those of them the
-# adjoint step kernel served.
+# adjoint step kernel served; the diagonal items on global bits the sharded
+# runner applied, and those of them it scaled in place.
 COUNTERS: Dict[str, int] = {"readout_passes": 0, "readout_terms": 0,
                              "readout_kernel_terms": 0, "plan_misses": 0,
                              "dense2q_gates": 0, "dense2q_kernel_gates": 0,
-                             "adjoint_steps": 0, "adjoint_kernel_steps": 0}
+                             "adjoint_steps": 0, "adjoint_kernel_steps": 0,
+                             "shard_diagonals": 0,
+                             "shard_diagonals_in_place": 0}
 
 # what a span given ``request=NEW`` does: start a new request
 NEW = object()

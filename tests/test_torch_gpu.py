@@ -1066,6 +1066,47 @@ def test_sharded_circuit_on_the_card_matches_unsharded(cuda):
     _same_as_unsharded(cuda, n, got)
 
 
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_global_diagonals_scale_cells_in_place_on_the_card(cuda, dtype,
+                                                           monkeypatch):
+    """Diagonals on global bits over 4 virtual shards of the card (RZ on
+    both global bits: a scalar a cell; CZ, CRZ and RZZ across the
+    boundary: a factor over local qubits, copied up from pinned memory
+    without a host wait): no matmul, every part updated in place, the
+    result the unsharded run's."""
+    from rocquantum_tpu_torch.compiler import CircuitIR, compile_ir
+    from rocquantum_tpu_torch.ops import statevec as sv
+    from rocquantum_tpu_torch.parallel import (make_mesh, shard_state,
+                                               sharded, state_sharding)
+    n = 12
+    ir = CircuitIR(n)
+    ir.add("RZ", [n - 2], params=[0.7])
+    ir.add("RZ", [n - 1], params=[1.9])
+    ir.add("CZ", [0], controls=[n - 1])
+    ir.add("CRZ", [3], controls=[n - 2], params=[0.6])
+    ir.add("RZZ", [2, n - 1], params=[0.8])
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    v = torch.randn(1 << n, dtype=dtype, device=cuda, generator=gen)
+    v /= float(v.abs().square().sum()) ** 0.5
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    state = shard_state(v, mesh)
+    ptr = state.parts[0][0].data_ptr()
+    calls = []
+    matmul = sv.apply_matrix
+    monkeypatch.setattr(sv, "apply_matrix",
+                        lambda *a: calls.append(a) or matmul(*a))
+    out = compile_ir(ir, sharding=state_sharding(mesh))(state)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(sv, "apply_matrix", matmul)
+    assert not calls
+    assert out.parts[0][0].data_ptr() == ptr
+    want = compile_ir(ir)(v)
+    got = sharded.gather(out)[0]
+    tol = 1e-6 if dtype == torch.complex64 else 1e-12
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 # -- the plugins, the flat-rho API and the pair surface ------------------------
 
 @pytest.fixture

@@ -10,6 +10,8 @@ JAX package's own sharded tests' (test_sharded.py:126, 227): 1e-6 of the
 amplitudes in single precision, 1e-12 in double.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -23,10 +25,13 @@ from rocquantum_tpu.parallel import mesh as jax_mesh
 import rocquantum_tpu_torch as rq
 from rocquantum_tpu_torch import config as port_config
 from rocquantum_tpu_torch import convert
-from rocquantum_tpu_torch.compiler import CircuitIR, compile_ir, execute
+from rocquantum_tpu_torch.compiler import (CircuitIR, compile_ir,
+                                           execute)
+from rocquantum_tpu_torch.compiler.interpreter import compile_df64_fused_ir
 from rocquantum_tpu_torch.compiler import sharded_schedule as port_sched
 from rocquantum_tpu_torch.ops import fused_df64, fused_sv
 from rocquantum_tpu_torch.ops import statevec as sv
+from rocquantum_tpu_torch.utils import profiling
 from rocquantum_tpu_torch.parallel import (count_collectives, make_mesh,
                                            make_mesh_2d, make_mesh_multislice,
                                            num_global_qubits,
@@ -572,6 +577,204 @@ def test_global_diagonals_move_nothing():
         c.ry(0.5, 1)
     np.testing.assert_allclose(shd.get_statevector(), ref.get_statevector(),
                                atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# diagonals on global bits: one in-place factor a cell
+# ---------------------------------------------------------------------------
+
+def one_cell_mesh():
+    """Two shards, each on a device of its own (``cpu`` and ``cpu:0``
+    compare unequal): one cell a device, as on the cards."""
+    return make_mesh(2, devices=[CPU, torch.device("cpu", 0)])
+
+
+_DIAG_N = 8
+_TOP = _DIAG_N - 1  # global on every mesh below
+# (name, targets, controls, params): each touches the top qubit, so no
+# member is local-only and no run of local items reaches a matmul
+_DIAG_CASES = {
+    "Z": [("Z", [_TOP], [], [])],
+    "S": [("S", [_TOP], [], [])],
+    "T": [("T", [_TOP], [], [])],
+    "RZ": [("RZ", [_TOP], [], [0.37])],
+    "P": [("P", [_TOP], [], [1.1])],
+    "block": [("Z", [_TOP], [], []), ("S", [_TOP], [], []),
+              ("T", [_TOP], [], []), ("RZ", [_TOP], [], [0.4]),
+              ("P", [_TOP], [], [0.9])],
+    "CZ": [("CZ", [0], [_TOP], [])],
+    "CRZ": [("CRZ", [2], [_TOP], [0.6])],
+    "RZZ": [("RZZ", [3, _TOP], [], [0.8])],
+}
+_DIAG_BATCH = 3
+
+
+def _diag_ir(case):
+    jir = JaxIR(_DIAG_N)
+    for name, targets, controls, params in _DIAG_CASES[case]:
+        jir.add(name, targets, controls=controls, params=params)
+    return jir
+
+
+def _diag_states(dtype):
+    """A batch of random states; element 0 is the unbatched input."""
+    rng = np.random.default_rng(11)
+    shape = (_DIAG_BATCH, 1 << _DIAG_N)
+    v = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.complex64 if dtype == "c64" else np.complex128)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_diag(case, dtype):
+    """The JAX package's sharded run of ``case`` on each element of
+    :func:`_diag_states` over its 8 virtual devices."""
+    import jax.numpy as jnp
+    from rocquantum_tpu.compiler import compile_ir as jax_compile_ir
+    from rocquantum_tpu.parallel import sharded as jax_sharded
+    _set("single" if dtype == "c64" else "double")
+    mesh = jax_mesh.make_mesh(8)
+    fn = jax_compile_ir(_diag_ir(case),
+                        sharding=jax_sharded.state_sharding(mesh),
+                        donate=False)
+    zero = jnp.zeros((0,), jnp.float32)
+    return np.stack([np.asarray(fn(jax_sharded.shard_state(jnp.asarray(x),
+                                                            mesh), zero))
+                     for x in _diag_states(dtype)])
+
+
+@pytest.mark.parametrize("mesh_kind", ["cells", "devices"])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("dtype", ["c64", "c128"])
+@pytest.mark.parametrize("case", list(_DIAG_CASES))
+def test_global_diagonals_scale_each_cell_in_place(monkeypatch, case, dtype,
+                                                   batched, mesh_kind):
+    """A diagonal on global bits, alone, in a block, or across the
+    local/global boundary, on complex64 (planned: one DiagBlock) and
+    complex128 (op by op) parts, unbatched and batched, on a mesh of
+    several cells a device and one of one cell a device: the port's run
+    matches its unsharded run and the JAX package's sharded run, reaches
+    no matmul, updates every part in place and counts each diagonal item
+    once a run."""
+    jax_ref = _jax_diag(case, dtype)
+    _set("single")
+    ir = convert.ir_from_reference(_diag_ir(case))
+    v = torch.as_tensor(_diag_states(dtype))
+    if not batched:
+        v, jax_ref = v[0], jax_ref[0]
+    mesh = cpu_mesh(8) if mesh_kind == "cells" else one_cell_mesh()
+    state = shard_state(v, mesh)
+    ptrs = [p[0].data_ptr() for p in state.parts]
+    run = compile_ir(ir, batched=batched,
+                     sharding=state_sharding(mesh, batch=batched))
+    items = 1 if dtype == "c64" else len(ir.ops)
+
+    calls = []
+    matmul = sv.apply_matrix
+    monkeypatch.setattr(sv, "apply_matrix", lambda *a: calls.append(a)
+                        or matmul(*a))
+    for _ in range(2):
+        before = dict(profiling.COUNTERS)
+        out = run(state)
+        assert profiling.COUNTERS["shard_diagonals"] \
+            - before["shard_diagonals"] == items
+        assert profiling.COUNTERS["shard_diagonals_in_place"] \
+            - before["shard_diagonals_in_place"] == items
+    assert not calls
+    assert [p[0].data_ptr() for p in out.parts] == ptrs
+    monkeypatch.setattr(sv, "apply_matrix", matmul)
+
+    # two runs on the sharded state, so the references apply it twice
+    flat = compile_ir(ir, batched=batched)
+    want = flat(flat(v))
+    tol = F32_TOL if dtype == "c64" else DOUBLE_TOL
+    got = sharded.gather(out)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol)
+    jflat = compile_ir(ir, batched=batched)(torch.as_tensor(jax_ref))
+    np.testing.assert_allclose(got.numpy(), jflat.numpy(), atol=tol)
+
+
+def test_df64_parts_keep_the_per_shard_diagonal():
+    """The df64 engine's hi/lo planes are not one complex tensor: a global
+    diagonal still runs shard by shard on them (its scalar needs the hi/lo
+    arithmetic), counted as a global diagonal, not as one scaled in place,
+    and the result is the unsharded engine's."""
+    _set("df64")
+    ir = convert.ir_from_reference(_diag_ir("block"))
+    ir.add("CRZ", [2], controls=[_TOP], params=[0.6])
+    v = torch.as_tensor(_diag_states("c128")[0])
+    pair = (v.real.contiguous(), v.imag.contiguous())
+    mesh = cpu_mesh(8)
+    before = dict(profiling.COUNTERS)
+    out = compile_df64_fused_ir(ir, sharding=state_sharding(mesh))(
+        shard_state(pair, mesh), None)
+    assert profiling.COUNTERS["shard_diagonals"] \
+        - before["shard_diagonals"] == 1
+    assert profiling.COUNTERS["shard_diagonals_in_place"] \
+        == before["shard_diagonals_in_place"]
+    re, im = sharded.gather(out)
+    want = compile_df64_fused_ir(ir)(pair, None)
+    np.testing.assert_allclose(re.numpy(), want[0].numpy(), atol=DOUBLE_TOL)
+    np.testing.assert_allclose(im.numpy(), want[1].numpy(), atol=DOUBLE_TOL)
+
+
+def test_the_four_card_cells_circuit_has_no_matmul():
+    """The four-card cell's circuit (EfficientSU2, ry/rz, circular, reps
+    8) at n = 17 over 4 shards: the plan's diagonals are 9 DiagBlocks of
+    RZ on the two global bits, whatever the low block's width, with no
+    FusedBlock; a request scales each cell in place 9 times and reaches
+    no matmul (the per-shard diagonal made 72 a request, 18 x 4 shards),
+    and its state is the unsharded program's."""
+    from portbench.circuits import efficient_su2
+    from rocquantum_tpu_torch.compiler import interpreter
+    from rocquantum_tpu_torch.compiler.passes import DiagBlock, FusedBlock
+    n, n_global = 17, 2
+    gates = efficient_su2.gates({"num_qubits": n, "reps": 8,
+                                 "su2_gates": ["ry", "rz"],
+                                 "entanglement": "circular"})
+
+    def kernel(q, *theta):
+        for name, qubits, param in gates:
+            getattr(q, name.lower())(
+                *(() if param is None else (theta[param],)), *qubits)
+
+    theta = np.random.default_rng(3).uniform(
+        0, 2 * np.pi, 1 + max(p for *_, p in gates if p is not None))
+    ir = rq.trace_kernel(kernel, n, *theta)
+    ops, _ = port_sched.schedule_for_sharding(list(ir.ops), n, n_global)
+    plans = [interpreter.plan_items(ops, n - n_global, True, 2,
+                                    use_kernel=True, low_width=w)
+             for w in (interpreter.default_widths(n, sharded=True)[0], 0)]
+    assert [_op_tuple(o) for p in plans[0] if isinstance(p, DiagBlock)
+            for o in p.ops] == [_op_tuple(o) for p in plans[1]
+                                if isinstance(p, DiagBlock) for o in p.ops]
+    assert len(plans[0]) == len(plans[1])
+    diags = [p for p in plans[0] if isinstance(p, DiagBlock)]
+    assert len(diags) == 9
+    assert all(op.name == "RZ" and op.targets[0] >= n - n_global
+               for p in diags for op in p.ops)
+    assert {tuple(p.qubits) for p in diags} == {(n - 2, n - 1)}
+    assert not any(isinstance(p, FusedBlock) for p in plans[0])
+
+    prog = rq.compile_program(ir, rq.Simulator(device="cpu"),
+                              mesh=cpu_mesh(4))
+    prog.run(theta)
+    calls = []
+    matmul = sv.apply_matrix
+    try:
+        sv.apply_matrix = lambda *a: calls.append(a) or matmul(*a)
+        before = dict(profiling.COUNTERS)
+        handle = prog.run(theta)
+    finally:
+        sv.apply_matrix = matmul
+    assert not calls
+    assert profiling.COUNTERS["shard_diagonals"] \
+        - before["shard_diagonals"] == 9
+    assert profiling.COUNTERS["shard_diagonals_in_place"] \
+        - before["shard_diagonals_in_place"] == 9
+    flat = rq.compile_program(ir, rq.Simulator(device="cpu")).run(theta)
+    np.testing.assert_allclose(handle.get_statevector(),
+                               flat.get_statevector(), atol=F32_TOL)
 
 
 def test_sharding_arguments_name_the_state_layout():
